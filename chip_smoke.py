@@ -2,23 +2,37 @@
 
     python3 chip_smoke.py
 
-1. prints the card's name and power limit, builds the four CUDA kernels
+1. prints the card's name and power limit, builds the eight CUDA kernels
    (K1 ristretto_decode, K2 bucket_accumulate, K3 bucket_fold, K4
-   horner_check) from kernels/csrc, and prints the build time;
-2. holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes (nb = 1024 proofs of 64 bits, m = 1), words and
-   flags exactly equal, and times both;
-3. with every launch count set to 0, runs the main path through its entry
-   point zkvm_tpu_torch.proofs.rangeproof.batch_verify at nb = 1024 and
-   nb = 4096: a valid batch must accept, a batch with one t_x changed and
-   one with a non-canonical point encoding must reject;
-4. prints the kernels line (every launch count must be > 0) and, last,
+   horner_check, K5 seg_combine, K6 point_add, K7 fe_mul, K8 fe_add) from
+   kernels/csrc, and prints the build time;
+2. holds K1-K4 against their plain PyTorch versions on the card at the
+   range-proof path's shapes (nb = 1024 proofs of 64 bits, m = 1), words
+   and flags exactly equal, and times both;
+3. with every launch count set to 0, runs the range-proof path through its
+   entry point zkvm_tpu_torch.proofs.rangeproof.batch_verify at nb = 1024
+   and nb = 4096: a valid batch must accept, a batch with one t_x changed
+   and one with a non-canonical point encoding must reject;
+4. holds K5 and K6 against their plain versions at the shapes of the
+   Cloak verification's small-route MSM (its first scan step and its
+   bucket fold), K7 and K8 at 2^16 elements, and window_totals_small
+   against window_totals_large at n = 1,282 and 2,048 (the route
+   crossover), and times them;
+5. with every launch count set to 0, runs R1CS verification through
+   zkvm_tpu_torch.proofs.r1cs.Verifier.verify on the two committed
+   fixtures (a Cloak 4x4 with 64-bit values, on the small route, and 512
+   64-bit range gadgets, 2^15 multipliers, on K2/K3): the valid proof must
+   accept, a proof with t_x + 1 and one with a non-canonical encoding
+   (which K1 must flag) must raise VerificationError;
+6. with every launch count set to 0, calls the field entry points
+   pointwise.mul and pointwise.add (K7, K8; on no verify path);
+7. prints the kernels line (every launch count must be > 0) and, last,
    the device line.
 
-Proofs come from the committed fixture zkvm_tpu_torch/data, tiled to the
-batch size; each copy gets its own random weight, so the MSM is full size
-with real points and distinct digits.  Exits non-zero on any failure, and
-without a CUDA device.
+Range proofs come from the committed fixture zkvm_tpu_torch/data, tiled to
+the batch size; each copy gets its own random weight, so the MSM is full
+size with real points and distinct digits.  Exits non-zero on any
+failure, and without a CUDA device.
 """
 
 import json
@@ -28,6 +42,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 MEM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
@@ -59,6 +74,24 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, kernel_name, reps):
+    """Mean device time in ms of the CUDA kernel `kernel_name` per launch,
+    read from torch.profiler's trace over reps calls of fn(): the card's
+    own time, without the host's launch cost that the events include.
+    None when the trace holds no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if kernel_name in e.key]
+    total = sum(getattr(e, "device_time_total", 0) for e in rows)
+    count = sum(e.count for e in rows)
+    return total / count / 1e3 if count and total else None
+
+
 def bound_ms(nbytes, products):
     by_bytes = nbytes / MEM_BYTES_PER_S * 1e3
     by_ops = products / PRODUCTS_PER_S * 1e3
@@ -75,14 +108,18 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from zkvm_tpu_torch import fixture
-    from zkvm_tpu_torch.kernels import _build, combine, decompress, msm
+    from zkvm_tpu_torch.kernels import (_build, combine, decompress, msm,
+                                        pointwise)
     from zkvm_tpu_torch.kernels import batch_verify_device as bvd
+    from zkvm_tpu_torch.kernels import field as F
     from zkvm_tpu_torch.kernels import scalarmod as sm
     from zkvm_tpu_torch.kernels.words import (encoding_words, points_to_words,
-                                              to_device, words_to_points)
+                                              scalar_words, to_device,
+                                              words_to_points)
     from zkvm_tpu_torch.constants import L, P
     from zkvm_tpu_torch.proofs.errors import VerificationError
     from zkvm_tpu_torch.proofs.generators import BulletproofGens, PedersenGens
+    from zkvm_tpu_torch.proofs.r1cs import R1CSProof
     from zkvm_tpu_torch.proofs.rangeproof import RangeProof, batch_verify
     from zkvm_tpu_torch.proofs.transcript import ProofTranscript
 
@@ -92,8 +129,8 @@ def main():
     print(smi, flush=True)
     t0 = time.perf_counter()
     built = _build.build_all()
-    print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(built)} "
-          f"(parallel nvcc)", flush=True)
+    print(f"build: {time.perf_counter() - t0:.1f} s for {len(built)} kernels "
+          f"{sorted(built)} (parallel nvcc)", flush=True)
     for name in _build.SIGNATURES:
         for line in _build.lib_path(name).with_suffix(".log").read_text().splitlines():
             if "Used" in line or "spill" in line:
@@ -237,9 +274,17 @@ def main():
 
     # ---------------------------------------------------------- phase 3
     kernels = [decompress.ristretto_decode, msm.bucket_accumulate,
-               msm.bucket_fold, combine.horner_check]
-    for k in kernels:
-        k.launches = 0
+               msm.bucket_fold, combine.horner_check, pointwise.seg_combine,
+               pointwise.point_add, pointwise.mul, pointwise.add]
+
+    def reset():
+        for k in kernels:
+            k.launches = 0
+
+    def counts():
+        return [k.launches for k in kernels]
+
+    reset()
     for nb in (1024, 4096):
         timings = {}
         batch_verify(*batch(nb), device=dev, timings=timings)
@@ -257,20 +302,221 @@ def main():
                 rejected = True
             require(rejected, f"nb={nb}: the batch with a bad {tamper} was accepted")
             print(f"nb={nb} {tamper} tampered: rejected", flush=True)
-    launches = [k.launches for k in kernels]
+    range_path = counts()
+    require(all(c > 0 for c in range_path[:4]),
+            f"the range-proof path skipped a kernel: {range_path}")
+    print(f"range-proof path launches: {range_path}", flush=True)
+
+    # ---------------------------------------------------------- phase 4
+    def same_points(a, b):
+        """(4, 10, k) points equal as projective points, X1 Z2 = X2 Z1 and
+        so on: two routes add in different orders, so their coordinates
+        differ by a factor while the points agree."""
+        A, B = F.unpack_points(a), F.unpack_points(b)
+        return all(bool(F.is_zero(F.sub(F.mul(A[i], B[2]),
+                                        F.mul(B[i], A[2]))).all())
+                   for i in (0, 1, 3))
+
+    cloak_fx = fixture.load_r1cs(fixture.R1CS_CLOAK)
+    range_fx = fixture.load_r1cs(fixture.R1CS_RANGE)
+    t = time.perf_counter()
+    r1cs_bp = BulletproofGens(range_fx.gens_capacity)   # serves both
+    print(f"generators for 2^15 multipliers: {time.perf_counter() - t:.2f} s",
+          flush=True)
+
+    # the Cloak MSM exactly as its verify builds it
+    dyn_s, dyn_enc, bb, bs, g_v, h_v, padded_n = fixture.r1cs_verifier(
+        cloak_fx).verification_job_split_vec(
+            R1CSProof.from_bytes(cloak_fx.wire), r1cs_bp, pc)
+    static_sc = to_device(scalar_words([bb, bs] + g_v.to_ints()
+                                       + h_v.to_ints()), dev)
+    dyn_sc = to_device(scalar_words(dyn_s), dev)
+    cn = static_sc.shape[0] + dyn_sc.shape[0]
+    cw = msm.best_wbits(cn)
+    cnb = 1 << (cw - 1)
+    c_digits = sm.signed_digits(torch.cat([sm.decode_words_last(static_sc),
+                                           sm.decode_words_last(dyn_sc)], 1), cw)
+    c_points = torch.cat([
+        words_to_points(bvd.static_gens_words(r1cs_bp, pc, padded_n, 1, dev)),
+        decompress.ristretto_decode(to_device(encoding_words(dyn_enc), dev))[0]],
+        dim=2)
+    cnw = c_digits.shape[1]
+    runs, run_flags, _ = msm.sorted_runs(c_points, c_digits, cw)
+    print(f"Cloak MSM: {cn} points, route {msm.route(cn)}, wbits {cw}, "
+          f"{cnw} windows x {cnb} buckets", flush=True)
+
+    def flat(x):
+        return x.reshape(4, F.NL, -1).contiguous()
+
+    # K5 at the scan's first step (offset 1), K6 at the fold's width
+    p5, q5 = flat(runs[..., :cn - 1]), flat(runs[..., 1:])
+    f5 = run_flags[:, 1:].reshape(-1).contiguous()
+    p6, q6 = flat(runs[..., :cnb]), flat(runs[..., cnb:2 * cnb])
+    rs = np.random.default_rng(2026)
+    b7 = 1 << 16
+    a7, c7 = (torch.tensor(np.stack([rs.integers(0, 1 << w, b7) for w in F.W]),
+                           dtype=torch.int32, device=dev) for _ in range(2))
+    checks = {
+        "K5": (lambda: pointwise.seg_combine(p5, q5, f5),
+               lambda: pointwise.seg_combine_plain(p5, q5, f5),
+               bound_ms(f5.numel() * (2 * 160 + 4 + 160),
+                        int((f5 == 0).sum()) * ADD), points_to_words),
+        "K6": (lambda: pointwise.point_add(p6, q6),
+               lambda: pointwise.point_add_plain(p6, q6),
+               bound_ms(p6.shape[2] * 3 * 160, p6.shape[2] * ADD),
+               points_to_words),
+        "K7": (lambda: pointwise.mul(a7, c7), lambda: pointwise.mul_plain(a7, c7),
+               bound_ms(b7 * 3 * 40, b7 * MUL), F.freeze),
+        "K8": (lambda: pointwise.add(a7, c7), lambda: pointwise.add_plain(a7, c7),
+               bound_ms(b7 * 3 * 40, 0), F.freeze),
+    }
+    kernel_names = {"K5": "seg_combine_kernel", "K6": "point_add_kernel",
+                    "K7": "fe_mul_kernel", "K8": "fe_add_kernel"}
+    for k, (kern, plain, bound, canon) in checks.items():
+        out_k, out_p = kern(), plain()
+        torch.cuda.synchronize()
+        require(torch.equal(out_k, out_p), f"{k} differs from its plain version")
+        ck, cp = canon(out_k.to(torch.int64)), canon(out_p.to(torch.int64))
+        require(torch.equal(ck, cp), f"{k} canonical words differ")
+        results[k] = dict(err=max_abs_err(ck, cp), ms=cuda_ms(kern, 20),
+                          plain_ms=cuda_ms(plain, 2), bound=bound)
+        v = results[k]
+        dms = device_ms(kern, kernel_names[k], 20)
+        print(f"{k}: elements={out_k.shape[-1]} kernel_ms={v['ms']:.4f} "
+              f"device_only_ms="
+              f"{'not measured' if dms is None else f'{dms:.5f}'} "
+              f"plain_ms={v['plain_ms']:.2f} bound_ms={v['bound'][0]:.5f} "
+              f"({v['bound'][1]}) max_abs_err={v['err']}", flush=True)
+
+    # the Cloak device half by stage
+    c_static = bvd.static_gens_words(r1cs_bp, pc, padded_n, 1, dev)
+    c_enc = to_device(encoding_words(dyn_enc), dev)
+    c_totals = msm.window_totals(c_points, c_digits, cw)
+    stages = {
+        "recode": lambda: sm.signed_digits(torch.cat([
+            sm.decode_words_last(static_sc), sm.decode_words_last(dyn_sc)], 1),
+            cw),
+        "K1 decode": lambda: decompress.ristretto_decode(c_enc),
+        "sort+gather+sign": lambda: msm.sorted_runs(c_points, c_digits, cw),
+        "window_totals_small": lambda: msm.window_totals_small(c_points,
+                                                               c_digits, cw),
+        "K4": lambda: combine.horner_check(c_totals.unsqueeze(2).contiguous(),
+                                           cw),
+        "whole split_msm_check": lambda: bvd.split_msm_check(
+            c_static, c_enc, static_sc, dyn_sc, cw),
+    }
+    print("Cloak device half stages (ms): " + json.dumps(
+        {k: round(cuda_ms(f, 5), 4) for k, f in stages.items()}), flush=True)
+
+    # the route crossover: both routes on the same points and digits
+    gens_pts = words_to_points(bvd.static_gens_words(r1cs_bp, pc, 1024, 1, dev))
+    for n in (1282, 2048):
+        pts_n = gens_pts[:, :, :n].contiguous()
+        ks = [int.from_bytes(rs.bytes(32), "little") % L for _ in range(n)]
+        lim = sm.ints_to_limbs(ks, dev)
+        w = msm.best_wbits(n)
+        dg = sm.signed_digits(lim, w)
+        small = msm.window_totals_small(pts_n, dg, w)
+        large = msm.window_totals_large(pts_n, dg, w)
+        require(same_points(small, large),
+                f"n={n}: the small and large routes' totals differ")
+        dg11 = sm.signed_digits(lim, 11)
+        msm_w = combine.horner_fold_plain(small.unsqueeze(2), w)
+        msm_11 = combine.horner_fold_plain(
+            msm.window_totals_large(pts_n, dg11, 11).unsqueeze(2), 11)
+        require(same_points(F.pack_points(msm_w), F.pack_points(msm_11)),
+                f"n={n}: the MSM at w = {w} and w = 11 differ")
+        print(f"route crossover n={n}: small(w={w})_ms="
+              f"{cuda_ms(lambda: msm.window_totals_small(pts_n, dg, w), 5):.4f} "
+              f"large(w={w})_ms="
+              f"{cuda_ms(lambda: msm.window_totals_large(pts_n, dg, w), 5):.4f} "
+              f"large(w=11)_ms="
+              f"{cuda_ms(lambda: msm.window_totals_large(pts_n, dg11, 11), 5):.4f}"
+              f" totals equal [{smi}]", flush=True)
+
+    # ---------------------------------------------------------- phase 5
+    def tampered_encoding(enc: bytes) -> bytes:
+        bad = (int.from_bytes(enc, "little") + P).to_bytes(32, "little")
+        _, ok = decompress.ristretto_decode(to_device(encoding_words([bad]), dev))
+        require(int(ok[0]) == 0, "K1 accepts the non-canonical encoding")
+        return bad
+
+    # tampered copies, made (and their encodings checked by K1) before the
+    # counts are reset: a proof with t_x + 1, and one with a non-canonical
+    # encoding (A_I2 of the Cloak; one value commitment V of the range
+    # circuit)
+    tampered = {}
+    for name, fx in (("cloak4x4_64", cloak_fx), ("range512x64", range_fx)):
+        bad_t = R1CSProof.from_bytes(fx.wire)
+        bad_t.t_x = (bad_t.t_x + 1) % L
+        bad_e = R1CSProof.from_bytes(fx.wire)
+        bad_fx = fx
+        if fx.circuit == "cloak":
+            bad_e.A_I2 = tampered_encoding(bad_e.A_I2)
+        else:
+            coms = list(fx.commitments)
+            coms[len(coms) // 2] = tampered_encoding(coms[len(coms) // 2])
+            bad_fx = fixture.R1CSFixture(fx.label, fx.circuit, fx.gens_capacity,
+                                         fx.params, coms, fx.wire)
+        tampered[name] = (("t_x", bad_t, fx), ("encoding", bad_e, bad_fx))
+
+    reset()
+    for name, fx in (("cloak4x4_64", cloak_fx), ("range512x64", range_fx)):
+        timings = {}
+        fixture.r1cs_verifier(fx).verify(R1CSProof.from_bytes(fx.wire), pc,
+                                         r1cs_bp, device=dev, timings=timings)
+        print(f"r1cs {name} accept: host_s={timings['host_s']:.3f} "
+              f"device_s={timings['device_s']:.4f} "
+              f"msm_size={timings['msm_size']} wbits={timings['wbits']} "
+              f"route={timings['route']} [{smi}]", flush=True)
+        if name.startswith("cloak"):
+            require(timings["route"] == "small"
+                    and pointwise.seg_combine.launches > 0
+                    and pointwise.point_add.launches > 0
+                    and msm.bucket_accumulate.launches == 0,
+                    "the Cloak verification did not run the small route")
+        for tamper, proof, f in tampered[name]:
+            try:
+                fixture.r1cs_verifier(f).verify(proof, pc, r1cs_bp, device=dev)
+                rejected = False
+            except VerificationError:
+                rejected = True
+            require(rejected, f"r1cs {name}: the proof with a bad {tamper} "
+                              "was accepted")
+            print(f"r1cs {name} {tamper} tampered: rejected", flush=True)
+    r1cs_path = counts()
+    require(all(c > 0 for c in r1cs_path[:6]),
+            f"the R1CS path skipped a kernel: {r1cs_path}")
+    print(f"R1CS path launches: {r1cs_path}", flush=True)
+
+    # ---------------------------------------------------------- phase 6
+    reset()
+    pointwise.mul(a7, c7)
+    pointwise.add(a7, c7)
+    torch.cuda.synchronize()
+    entry = counts()
+    require(entry[6] > 0 and entry[7] > 0,
+            f"the field entry points did not launch K7/K8: {entry}")
+    launches = [a + b + c for a, b, c in zip(range_path, r1cs_path, entry)]
     require(all(c > 0 for c in launches), f"a kernel never launched: {launches}")
 
     sources = ["decompress.cu", "bucket_accumulate.cu", "bucket_fold.cu",
-               "horner_check.cu"]
+               "horner_check.cu", "seg_combine.cu", "point_add.cu",
+               "fe_mul.cu", "fe_add.cu"]
     replaces = [
         "zkvm_tpu/kernels/pallas_decompress.py:207",
         "zkvm_tpu/kernels/pallas_msm.py:361; zkvm_tpu/kernels/pallas_msm.py:411;"
         " zkvm_tpu/kernels/pallas_msm.py:103",
         "zkvm_tpu/kernels/pallas_msm.py:471; zkvm_tpu/kernels/pallas_msm.py:497",
         "zkvm_tpu/kernels/pallas_msm.py:1411",
+        "zkvm_tpu/kernels/pallas_msm.py:89",
+        "zkvm_tpu/kernels/pallas_field.py:155; zkvm_tpu/kernels/pallas_msm.py:103"
+        " (point_add_lm)",
+        "zkvm_tpu/kernels/pallas_field.py:104 (entry point, on no verify path)",
+        "zkvm_tpu/kernels/pallas_field.py:129 (entry point, on no verify path)",
     ]
     names = ["ristretto_decode", "bucket_accumulate", "bucket_fold",
-             "horner_check"]
+             "horner_check", "seg_combine", "point_add", "fe_mul", "fe_add"]
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"zkvm_tpu_torch/kernels/csrc/{src}", "replaces": rep,

@@ -10,8 +10,9 @@ import torch
 
 import zkvm_tpu_torch
 from zkvm_tpu_torch import fixture
-from zkvm_tpu_torch.kernels import combine, decompress, msm
+from zkvm_tpu_torch.kernels import combine, decompress, msm, pointwise
 from zkvm_tpu_torch.proofs.generators import BulletproofGens, PedersenGens
+from zkvm_tpu_torch.proofs.r1cs import R1CSProof
 from zkvm_tpu_torch.proofs.rangeproof import RangeProof, batch_verify
 from zkvm_tpu_torch.proofs.transcript import ProofTranscript
 
@@ -46,6 +47,10 @@ def test_entry_point_without_device_needs_cuda():
                      BulletproofGens(n, 1), PedersenGens(),
                      [ProofTranscript(label) for _ in records[:2]],
                      [v for _, v in records[:2]], n)
+    fx = fixture.load_r1cs(fixture.R1CS_CLOAK)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fixture.r1cs_verifier(fx).verify(R1CSProof.from_bytes(fx.wire),
+                                         PedersenGens(), BulletproofGens(1))
 
 
 def test_kernel_wrappers_refuse_non_cuda_devices():
@@ -60,3 +65,17 @@ def test_kernel_wrappers_refuse_non_cuda_devices():
     with pytest.raises(ValueError, match="CUDA"):
         msm.bucket_fold(torch.empty((4, 10, 256), dtype=torch.int32,
                                     device="meta"), 2, 128)
+    pts = torch.empty((4, 10, 64), dtype=torch.int32, device="meta")
+    fe = torch.empty((10, 64), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        pointwise.seg_combine(pts, pts, torch.empty((64,), dtype=torch.int32,
+                                                    device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        pointwise.point_add(pts, pts)
+    with pytest.raises(ValueError, match="CUDA"):
+        pointwise.mul(fe, fe)
+    with pytest.raises(ValueError, match="CUDA"):
+        pointwise.add(fe, fe)
+    with pytest.raises(ValueError, match="CUDA"):
+        msm.window_totals_small(pts, torch.zeros((64, 32), dtype=torch.int32,
+                                                 device="meta"), 8)

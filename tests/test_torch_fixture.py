@@ -6,11 +6,17 @@ Regenerate it with the JAX package's prover:
     python tests/test_torch_fixture.py
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
-from zkvm_tpu.constants import L
+if __name__ == "__main__":      # run as a script: import from this checkout
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from zkvm_tpu.constants import L  # noqa: E402
 from zkvm_tpu.proofs import rangeproof as jrp
 from zkvm_tpu.proofs.errors import ProofError as JProofError
 from zkvm_tpu.proofs.generators import BulletproofGens as JBulletproofGens

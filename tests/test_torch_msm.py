@@ -1,6 +1,9 @@
 """The port's window totals (plain versions of K2/K3, zkvm_tpu_torch.kernels.msm)
 and Horner combine (plain K4, .combine) against the JAX package's host
-combine_window_totals and the oracle's Σ k_i·P_i, as exact Edwards points."""
+combine_window_totals and the oracle's Σ k_i·P_i, as exact Edwards points.
+The bucket pipeline is called by name (window_totals_large) at every n
+here; the small route that window_totals takes up to 2,048 points has its
+own tests in test_torch_msm_small.py."""
 
 import functools
 
@@ -60,7 +63,7 @@ def test_window_totals_combine_to_oracle_msm(n, wbits, kind):
     assert int(digits.abs().max()) <= 1 << (wbits - 1)
     assert int((digits < 0).sum()) > 0
     points = words_to_points(to_device(points_words(pts), "cpu"))
-    totals = msm.window_totals(points, digits, wbits)          # (4, 10, nw)
+    totals = msm.window_totals_large(points, digits, wbits)    # (4, 10, nw)
 
     # the JAX package's host combine, fed the canonical totals
     tot = points_to_ints(totals)

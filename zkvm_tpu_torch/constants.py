@@ -1,6 +1,6 @@
 """Curve, scalar and protocol constants of the PyTorch/CUDA package.
 
-A copy of what batched range-proof verification needs from the JAX
+A copy of what range-proof and R1CS verification need from the JAX
 package's constants module (the two packages share no code).  Field
 constants are computed from first principles at import time; the
 Ristretto basepoint encoding is pinned as a known-answer check.
@@ -56,4 +56,7 @@ MERLIN_PROTOCOL_LABEL = b"Merlin v1.0"
 MERLIN_DOMSEP_LABEL = b"dom-sep"
 LABEL_RANGEPROOF = b"rangeproof v1"
 LABEL_IPP = b"ipp v1"
+LABEL_R1CS = b"r1cs v1"
+LABEL_R1CS_1PHASE = b"r1cs-1phase"
+LABEL_R1CS_2PHASE = b"r1cs-2phase"
 GENERATORS_CHAIN_LABEL = b"GeneratorsChain"

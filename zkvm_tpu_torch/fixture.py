@@ -1,18 +1,32 @@
-"""The committed range-proof fixture: real proofs the port can read on a
-machine without the JAX package (tests/test_torch_fixture.py makes it).
+"""The committed proof fixtures: real proofs the port can read on a machine
+without the JAX package (tests/test_torch_fixture.py and
+tests/test_torch_r1cs_fixture.py make them with the JAX package's prover).
 
-File layout (little-endian): magic b"ZKRP0001", u32 n, u32 m, u32 count,
+Range proofs (little-endian): magic b"ZKRP0001", u32 n, u32 m, u32 count,
 u32 label length, the transcript label, then per proof its m value
 commitments (32 bytes each) and its wire bytes (224 + 64 lg(nm) + 64).
+
+R1CS proofs (little-endian): magic b"ZKR1CS01", u32 label length, the
+label, u32 circuit-name length, the name, u32 generator capacity (the
+proof's padded multiplier count), u32 parameter count, the u32
+parameters, u32 commitment count, the commitments (32 bytes each), then
+the proof's wire bytes to the end.  Circuits: "cloak" with parameters
+(inputs, outputs, range bits) over allocated values, and "range" with
+(bits,), one range gadget per committed value.
 """
 
 from __future__ import annotations
 
 import struct
+from dataclasses import dataclass
 from pathlib import Path
 
-FIXTURE = Path(__file__).resolve().parent / "data" / "rangeproofs_n64_m1.bin"
+DATA = Path(__file__).resolve().parent / "data"
+FIXTURE = DATA / "rangeproofs_n64_m1.bin"
+R1CS_CLOAK = DATA / "r1cs_cloak4x4_64.bin"
+R1CS_RANGE = DATA / "r1cs_range512x64.bin"
 MAGIC = b"ZKRP0001"
+R1CS_MAGIC = b"ZKR1CS01"
 
 
 def wire_len(n: int, m: int) -> int:
@@ -48,3 +62,71 @@ def load(path=FIXTURE):
         records.append((rec[32 * m:], [rec[32 * j: 32 * j + 32]
                                        for j in range(m)]))
     return label, n, m, records
+
+
+# ------------------------------------------------------------------- R1CS
+@dataclass
+class R1CSFixture:
+    label: bytes
+    circuit: str
+    gens_capacity: int
+    params: tuple[int, ...]
+    commitments: list[bytes]
+    wire: bytes
+
+
+def dump_r1cs(path, fx: R1CSFixture) -> None:
+    name = fx.circuit.encode()
+    blob = (R1CS_MAGIC + struct.pack("<I", len(fx.label)) + fx.label
+            + struct.pack("<I", len(name)) + name
+            + struct.pack("<II", fx.gens_capacity, len(fx.params))
+            + struct.pack(f"<{len(fx.params)}I", *fx.params)
+            + struct.pack("<I", len(fx.commitments))
+            + b"".join(fx.commitments) + fx.wire)
+    Path(path).write_bytes(blob)
+
+
+def load_r1cs(path) -> R1CSFixture:
+    data = Path(path).read_bytes()
+    if data[:8] != R1CS_MAGIC:
+        raise ValueError("not an R1CS fixture")
+    off = 8
+
+    def take(size: int) -> bytes:
+        nonlocal off
+        if off + size > len(data):
+            raise ValueError("truncated R1CS fixture")
+        off += size
+        return data[off - size: off]
+
+    def u32() -> int:
+        return struct.unpack("<I", take(4))[0]
+
+    label = take(u32())
+    circuit = take(u32()).decode()
+    gens_capacity = u32()
+    params = tuple(u32() for _ in range(u32()))
+    commitments = [take(32) for _ in range(u32())]
+    return R1CSFixture(label, circuit, gens_capacity, params, commitments,
+                       data[off:])
+
+
+def r1cs_verifier(fx: R1CSFixture):
+    """A Verifier with the fixture's circuit laid on it, ready for verify."""
+    from .gadgets import allocate_value, cloak, range_proof_gadget
+    from .proofs.r1cs import Verifier
+    from .proofs.transcript import ProofTranscript
+
+    verifier = Verifier(ProofTranscript(fx.label))
+    if fx.circuit == "cloak":
+        k_in, k_out, bits = fx.params
+        ins = [allocate_value(verifier, None) for _ in range(k_in)]
+        outs = [allocate_value(verifier, None) for _ in range(k_out)]
+        cloak(verifier, ins, outs, range_bits=bits)
+    elif fx.circuit == "range":
+        (bits,) = fx.params
+        for com in fx.commitments:
+            range_proof_gadget(verifier, verifier.commit(com), bits, None)
+    else:
+        raise ValueError(f"unknown circuit {fx.circuit!r}")
+    return verifier

@@ -41,6 +41,10 @@ SIGNATURES = {
                           [_P, _P, _P, _P, _L, _I, _I, _I, _P]),
     "bucket_fold": ("zkvm_bucket_fold", [_P, _P, _I, _I, _I, _I, _P]),
     "horner_check": ("zkvm_horner_check", [_P, _P, _I, _I, _I, _P]),
+    "seg_combine": ("zkvm_seg_combine", [_P, _P, _P, _P, _L, _P]),
+    "point_add": ("zkvm_point_add", [_P, _P, _P, _L, _P]),
+    "fe_mul": ("zkvm_fe_mul", [_P, _P, _P, _L, _P]),
+    "fe_add": ("zkvm_fe_add", [_P, _P, _P, _L, _P]),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}

@@ -1,4 +1,5 @@
-"""Batched range-proof verification on the card.
+"""Batched range-proof verification and the R1CS split mega-check on the
+card.
 
 Counterpart of the JAX package's kernels/batch_verify_device.py.  The host
 half (prepare_batch_inputs) replays every proof's transcript, batch-inverts
@@ -16,6 +17,10 @@ card:
 and the verdict is (every encoding decoded) AND (the MSM is the identity).
 Point order: [B_blinding, B] + G(n, m) + H(n, m) + per proof A, S, T1, T2,
 L.., R.., V..; the scalar rows match.
+
+The R1CS verifier (proofs/r1cs/verifier.py) computes every scalar on the
+host; its device half (split_msm_check) is decode, recode, window_totals
+and K4 over the same resident generator columns.
 """
 
 from __future__ import annotations
@@ -34,9 +39,9 @@ from ..proofs.rangeproof import delta as delta_fn
 from . import scalarmod as sm
 from .combine import horner_check
 from .decompress import ristretto_decode
-from .msm import best_wbits, window_totals
-from .words import (encoding_words, points_words, to_device, words_to_ints,
-                    words_to_points)
+from .msm import best_wbits, route, window_totals
+from .words import (encoding_words, points_words, scalar_words, to_device,
+                    words_to_ints, words_to_points)
 
 # COMPACT param layout, (nb, 9 + lg, 8) u32 — identical to the JAX
 # package's:  [0] wt  [1] z  [2] y_inv  [3] allinv  [4] a  [5] b  [6] x
@@ -153,6 +158,68 @@ def batch_msm_check(static_words: torch.Tensor, dyn_words: torch.Tensor,
     totals = window_totals(points, digits, wbits)
     ident = horner_check(totals.unsqueeze(2).contiguous(), wbits)[0]
     return ok.min() & ident
+
+
+def split_msm_check(static_words: torch.Tensor, dyn_enc_words: torch.Tensor,
+                    static_scalar_words: torch.Tensor,
+                    dyn_scalar_words: torch.Tensor, wbits: int
+                    ) -> torch.Tensor:
+    """A split mega-check on one device: static_words (4, 8, S) resident
+    point words, dyn_enc_words (8, D) raw encodings, static_scalar_words
+    (S, 8) and dyn_scalar_words (D, 8) 32-byte scalars below 2^256 (all
+    int32 bit patterns) -> int32 scalar tensor, 1 iff every encoding
+    decodes (K1's flag) and Σ s_i P_i is the identity.  The counterpart of
+    the JAX package's txbatch_msm_check."""
+    scalars = torch.cat([sm.decode_words_last(static_scalar_words),
+                         sm.decode_words_last(dyn_scalar_words)], dim=1)
+    digits = sm.signed_digits(scalars, wbits)
+    dyn_pts, ok = ristretto_decode(dyn_enc_words)
+    points = torch.cat([words_to_points(static_words), dyn_pts], dim=2)
+    totals = window_totals(points, digits, wbits)
+    ident = horner_check(totals.unsqueeze(2).contiguous(), wbits)[0]
+    return ok.min() & ident
+
+
+def fused_split_check(static_buf: bytes, dyn_s, dyn_enc_blob: bytes,
+                      bp_gens, pc_gens, device="cuda",
+                      timings: dict | None = None) -> bool:
+    """One split mega-check on `device`: the static scalars arrive as
+    packed 32-byte bytes over the resident [B_blinding, B] + G(maxpad) +
+    H(maxpad) columns, the dynamic points as raw 32-byte encodings
+    (decoded and validated by K1), the dynamic scalars as ints.  True iff
+    it accepts.
+
+    The JAX package pads the dynamic part to a multiple of 1,024 (256 at
+    least) and fixes wbits = 13, so that XLA compiles are shared and its
+    13-bit recoder applies; the port needs neither, so the MSM has exactly
+    n = S + D points and best_wbits(n) picks the width.  timings, when
+    given, receives host_s (packing), device_s (upload, device chain, the
+    verdict's fetch), msm_size, wbits and route."""
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    S = len(static_buf) // 32
+    maxpad = (S - 2) // 2
+    if len(static_buf) != 32 * S or S != 2 + 2 * maxpad:
+        raise FormatError("static scalars must cover [B_blinding, B] + G + H")
+    D = len(dyn_s)
+    if len(dyn_enc_blob) != 32 * D:
+        raise FormatError("one 32-byte encoding per dynamic scalar")
+    static = static_gens_words(bp_gens, pc_gens, maxpad, 1, dev)
+    static_sc = np.frombuffer(static_buf, np.uint32).reshape(S, 8)
+    dyn_sc = scalar_words([int(x) % L for x in dyn_s])
+    enc = np.frombuffer(dyn_enc_blob, np.uint32).reshape(D, 8).T
+    n = S + D
+    wbits = best_wbits(n)
+    t_host = time.perf_counter()
+    flag = split_msm_check(static, to_device(enc, dev),
+                           to_device(static_sc, dev), to_device(dyn_sc, dev),
+                           wbits)
+    verdict = bool(flag.item())
+    if timings is not None:
+        timings.update(host_s=t_host - t0,
+                       device_s=time.perf_counter() - t_host, msm_size=n,
+                       wbits=wbits, route=route(n))
+    return verdict
 
 
 # ------------------------------------------------------- static gens cache
@@ -276,6 +343,15 @@ def sum_bbB(bbB_pp: np.ndarray) -> np.ndarray:
                          np.uint32).reshape(2, 8).copy()
 
 
+def require_device(device) -> torch.device:
+    """`device` as a torch.device; raises when it names CUDA and no CUDA
+    device is available."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("a CUDA device was requested but none is available")
+    return dev
+
+
 def batch_verify_device(proofs, bp_gens, pc_gens, transcripts,
                         value_commitments, n: int,
                         entropy: bytes = b"\x01" * 32, device="cuda",
@@ -285,9 +361,7 @@ def batch_verify_device(proofs, bp_gens, pc_gens, transcripts,
     raise FormatError/ProofError.  timings, when given, receives host_s,
     device_s (upload, device chain and the verdict's fetch), msm_size and
     wbits."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("a CUDA device was requested but none is available")
+    dev = require_device(device)
     t_start = time.perf_counter()
     params, bbB_pp, dyn, m, lg = prepare_batch_inputs(
         proofs, bp_gens, pc_gens, transcripts, value_commitments, n, entropy)

@@ -1,18 +1,32 @@
-"""Pippenger window totals: K2 bucket_accumulate and K3 bucket_fold.
+"""Pippenger window totals, by one of two routes.
 
-Counterpart of the JAX package's pallas_msm.window_totals.  One pipeline
-for every n (any n works; callers that pad use identity points with zero
-digits, which join no bucket):
+Counterpart of the JAX package's pallas_msm.window_totals, and dispatched
+as it is: MSMs of 2,048 points or fewer (those whose padded_msm_size
+there is under the 4,096-point tile of its sequential pipeline) take the
+small route, larger ones the bucket pipeline.  Both start from one sort:
 
   1. per window, sort packed (|digit|, sign, index) keys (torch.sort — the
-     JAX package sorts with XLA outside any Pallas kernel too);
-  2. run offsets of each bucket in the sorted keys (torch.searchsorted);
-  3. K2 (csrc/bucket_accumulate.cu): every bucket's signed point sum;
-  4. K3 (csrc/bucket_fold.cu): each window's Σ_b b · B_b.
+     JAX package sorts with XLA outside any Pallas kernel too), and find
+     the run offsets of each bucket (torch.searchsorted).
 
-Windows are signed radix-2^w digits with |digit| <= 2^(w-1), so a window
-has nb = 2^(w-1) buckets holding magnitudes 1..nb.  The packed key needs
-that bound: a larger digit would spill into the index bits.
+window_totals_large, the bucket pipeline:
+  2. K2 (csrc/bucket_accumulate.cu): every bucket's signed point sum;
+  3. K3 (csrc/bucket_fold.cu): each window's Σ_b b · B_b.
+
+window_totals_small, the associative-scan route (JAX _bucket_totals):
+  2. gather and sign the points in sorted order (torch ops);
+  3. an inclusive segmented scan over each window's sorted runs:
+     ceil(log2 R) launches of K5 (kernels/pointwise.seg_combine), R the
+     longest bucket run of any window;
+  4. each bucket takes the scan's value at the end of its run;
+  5. a suffix scan over the buckets and a tree over the suffix sums,
+     2 log2(nb) launches of K6 (kernels/pointwise.point_add).
+
+Any n works on either route (callers that pad use identity points with
+zero digits, which join no bucket).  Windows are signed radix-2^w digits
+with |digit| <= 2^(w-1), so a window has nb = 2^(w-1) buckets holding
+magnitudes 1..nb.  The packed key needs that bound: a larger digit would
+spill into the index bits.
 """
 
 from __future__ import annotations
@@ -23,26 +37,37 @@ import torch
 
 from . import _build
 from . import field as F
+from .pointwise import point_add, seg_combine
 from .scalarmod import num_windows
 
 FOLD_LANES = 128      # K3 threads per window (the block size)
+SMALL_MSM_MAX = 2048  # the largest MSM on the small route
 
 # Cost model for choosing wbits on an H100 (132 SMs); the unit is one
-# point add on one thread.  K2 runs one thread per (window, bucket); at
-# ~512 resident threads per SM a launch of nw * nb threads takes
-# ceil(nw * nb / 67,584) waves, and a warp waits for the longest run among
-# its 32 buckets, about λ + 2.5 sqrt(λ) adds for Poisson runs of mean
-# λ = n / nb.  The top windows are not uniform: scalars are canonical and
-# below 2^252 (but for a 2^-127 share), so window j holds only
-# b_j = 252 - w j of its w bits, its digits fall in about 2^b_j buckets
-# and its longest run is about n / 2^b_j — and a window holding no bits
-# receives the carry out of a full window below, putting half the points
-# in bucket 1.  That run is one thread's serial work: on an H100 SXM at
-# 700 W, window_totals over 17,538 points took 1.5 ms at w = 11 against
-# 66 ms at w = 12, where the top window is such a carry window.  K3 then
-# walks 2R adds per thread, plus a scan and a tree of log2(lanes) adds
-# each and log2(R) doublings.  From 13, the JAX package's width at these
-# sizes, the model moves to 11 for every batch size up to 2^18 points.
+# point add on one thread, and at ~512 resident threads per SM a launch of
+# t threads takes ceil(t / 67,584) waves.
+#
+# The large route: K2 runs one thread per (window, bucket), and a warp
+# waits for the longest run among its 32 buckets, about λ + 2.5 sqrt(λ)
+# adds for Poisson runs of mean λ = n / nb.  The top windows are not
+# uniform: scalars are canonical and below 2^252 (but for a 2^-127
+# share), so window j holds only b_j = 252 - w j of its w bits, its digits
+# fall in about 2^b_j buckets and its longest run is about n / 2^b_j — and
+# a window holding no bits receives the carry out of a full window below,
+# putting half the points in bucket 1.  That run is one thread's serial
+# work: on an H100 SXM at 700 W, window_totals over 17,538 points took
+# 1.5 ms at w = 11 against 66 ms at w = 12, where the top window is such a
+# carry window.  K3 then walks 2R adds per thread, plus a scan and a tree
+# of log2(lanes) adds each and log2(R) doublings.  From 13, the JAX
+# package's width at these sizes, the model moves to 11 for every batch
+# size up to 2^18 points.
+#
+# The small route: at most ceil(log2 n) scan launches of nw * n threads
+# (the scan stops at the longest bucket run), then 2 log2(nb) fold
+# launches of at most nw * nb threads, each launch one add deep.  Digit
+# skew costs nothing here.  Every launch is at least one wave, so the
+# narrowest window the search allows (8) wins at every small n; the JAX
+# package's 13 would fold 4,096 buckets per window.
 _SMS = 132
 _RESIDENT_THREADS = 512
 _SCALAR_BITS = 252
@@ -52,12 +77,23 @@ def fold_lanes(nb: int) -> int:
     return min(FOLD_LANES, nb)
 
 
+def route(n: int) -> str:
+    """"small" for MSMs of n <= SMALL_MSM_MAX points, else "large"."""
+    return "small" if n <= SMALL_MSM_MAX else "large"
+
+
+def _waves(threads: int) -> int:
+    return max(1, math.ceil(threads / (_SMS * _RESIDENT_THREADS)))
+
+
 def msm_cost(n: int, wbits: int) -> float:
     nb = 1 << (wbits - 1)
     nw = num_windows(wbits)
+    if route(n) == "small":
+        return (math.ceil(math.log2(max(n, 2))) * _waves(nw * n)
+                + 2 * (wbits - 1) * _waves(nw * nb))
     lam = n / nb
-    waves = math.ceil(nw * nb / (_SMS * _RESIDENT_THREADS))
-    k2 = waves * (lam + 2.5 * math.sqrt(lam) + 1)
+    k2 = _waves(nw * nb) * (lam + 2.5 * math.sqrt(lam) + 1)
     for j in range(nw):
         bits = min(wbits, max(0, _SCALAR_BITS - wbits * j))
         if 0 < bits < wbits:
@@ -189,11 +225,91 @@ def sort_keys(digits: torch.Tensor, nb: int):
     return keys, offsets, shift
 
 
-def window_totals(points: torch.Tensor, digits: torch.Tensor, wbits: int):
-    """points (4, 10, n) int32, digits (n, nw) int32 signed radix-2^wbits
-    with |digit| <= 2^(wbits-1) -> window totals (4, 10, nw) int32, where
-    total_w = Σ_i digit[i, w] · P_i."""
+def window_totals_large(points: torch.Tensor, digits: torch.Tensor,
+                        wbits: int) -> torch.Tensor:
+    """The bucket pipeline: sort, K2, K3 (shapes as window_totals)."""
     nb = 1 << (wbits - 1)
     keys, offsets, shift = sort_keys(digits, nb)
     buckets = bucket_accumulate(keys, offsets, points, nb, shift)
     return bucket_fold(buckets, digits.shape[1], nb)
+
+
+def _flat(pts: torch.Tensor) -> torch.Tensor:
+    """(4, 10, ...) -> contiguous (4, 10, B), the kernels' layout."""
+    return pts.reshape(4, F.NL, -1).contiguous()
+
+
+def sorted_runs(points: torch.Tensor, digits: torch.Tensor, wbits: int):
+    """The small route's scan input: (each window's points in sorted
+    order, negated where the digit is negative, (4, 10, nw, n) int32;
+    run-start flags (nw, n) int32, 1 where the digit's magnitude changes;
+    the bucket run offsets (nw, nb + 1) of sort_keys)."""
+    n, nw = digits.shape
+    keys, offsets, shift = sort_keys(digits, 1 << (wbits - 1))
+    pts = points[:, :, keys & ((1 << shift) - 1)]
+    neg = ((keys >> shift) & 1) == 1
+    for c in (0, 3):                                        # X and T
+        v = pts[c].to(torch.int64)
+        pts[c] = F.select(neg, F.neg(v), v).to(torch.int32)
+    mag = keys >> (shift + 1)
+    flags = torch.ones((nw, n), dtype=torch.int32, device=digits.device)
+    flags[:, 1:] = (mag[:, 1:] != mag[:, :-1]).to(torch.int32)
+    return pts, flags, offsets
+
+
+def window_totals_small(points: torch.Tensor, digits: torch.Tensor,
+                        wbits: int) -> torch.Tensor:
+    """The associative-scan route: the same totals as the JAX package's
+    pallas_msm._bucket_totals, from a Hillis-Steele segmented scan (K5)
+    and a suffix-sum fold (K6); shapes as window_totals."""
+    if points.device.type != "cpu":
+        _build.check_cuda(points, torch.int32, (4, F.NL, None),
+                          "window_totals_small points")
+    n, nw = digits.shape
+    nb = 1 << (wbits - 1)
+    pts, flags, offsets = sorted_runs(points, digits, wbits)
+
+    # inclusive scan of each run (x_i <- x_(i-d) (+) x_i for i >= d); after
+    # the step with offset d every run of up to 2d points is summed, so the
+    # scan stops at the longest bucket run (the zero digits' run is unread)
+    longest = int((offsets[:, 1:] - offsets[:, :-1]).max())
+    d = 1
+    while d < longest:
+        out = seg_combine(_flat(pts[..., :n - d]), _flat(pts[..., d:]),
+                          flags[:, d:].reshape(-1).contiguous())
+        pts = torch.cat([pts[..., :d], out.view(4, F.NL, nw, n - d)], dim=-1)
+        flags = torch.cat([flags[:, :d], flags[:, d:] | flags[:, :n - d]],
+                          dim=1)
+        d *= 2
+
+    # bucket b (magnitude b + 1) is the scan's value at the end of its run
+    ends = offsets[:, 1:]
+    last = (ends - 1).clamp(min=0).expand(4, F.NL, nw, nb)
+    ident = torch.zeros((4, F.NL, 1, 1), dtype=torch.int32,
+                        device=digits.device)
+    ident[1, 0] = ident[2, 0] = 1
+    sums = torch.where(ends > offsets[:, :-1], pts.gather(3, last), ident)
+
+    # Σ_b (b + 1) · B_b = Σ_b S_b over the suffix sums S_b = Σ_(j >= b) B_j
+    d = 1
+    while d < nb:
+        head = point_add(_flat(sums[..., :nb - d]), _flat(sums[..., d:]))
+        sums = torch.cat([head.view(4, F.NL, nw, nb - d), sums[..., nb - d:]],
+                         dim=-1)
+        d *= 2
+    m = nb
+    while m > 1:
+        m //= 2
+        sums = point_add(_flat(sums[..., :m]), _flat(sums[..., m:2 * m])
+                         ).view(4, F.NL, nw, m)
+    return sums[..., 0].contiguous()
+
+
+def window_totals(points: torch.Tensor, digits: torch.Tensor, wbits: int):
+    """points (4, 10, n) int32, digits (n, nw) int32 signed radix-2^wbits
+    with |digit| <= 2^(wbits-1) -> window totals (4, 10, nw) int32, where
+    total_w = Σ_i digit[i, w] · P_i.  MSMs of n <= SMALL_MSM_MAX points take
+    the small route, larger ones the bucket pipeline."""
+    if route(digits.shape[0]) == "small":
+        return window_totals_small(points, digits, wbits)
+    return window_totals_large(points, digits, wbits)

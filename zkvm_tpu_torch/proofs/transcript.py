@@ -7,7 +7,8 @@ Implemented here as a subclass of the oracle Merlin transcript.
 
 from __future__ import annotations
 
-from ..constants import LABEL_IPP, LABEL_RANGEPROOF
+from ..constants import (LABEL_IPP, LABEL_R1CS, LABEL_R1CS_1PHASE,
+                         LABEL_R1CS_2PHASE, LABEL_RANGEPROOF)
 from ..oracle import scalar
 from ..oracle.merlin import Transcript
 from ..oracle.ristretto import RistrettoPoint
@@ -26,6 +27,15 @@ class ProofTranscript(Transcript):
     def innerproduct_domain_sep(self, n: int):
         self.append_message(b"dom-sep", LABEL_IPP)
         self.append_u64(b"n", n)
+
+    def r1cs_domain_sep(self):
+        self.append_message(b"dom-sep", LABEL_R1CS)
+
+    def r1cs_1phase_domain_sep(self):
+        self.append_message(b"dom-sep", LABEL_R1CS_1PHASE)
+
+    def r1cs_2phase_domain_sep(self):
+        self.append_message(b"dom-sep", LABEL_R1CS_2PHASE)
 
     # -- typed appends ------------------------------------------------------
     def append_scalar(self, label: bytes, s: int):

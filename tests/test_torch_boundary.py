@@ -10,7 +10,10 @@ import torch
 
 import zkvm_tpu_torch
 from zkvm_tpu_torch import fixture
-from zkvm_tpu_torch.kernels import combine, decompress, msm, pointwise
+from zkvm_tpu_torch.kernels import (combine, decompress, gather, msm,
+                                    pointwise, sort)
+from zkvm_tpu_torch.kernels.engine import TorchEngine
+from zkvm_tpu_torch.proofs.engine import get_engine
 from zkvm_tpu_torch.proofs.generators import BulletproofGens, PedersenGens
 from zkvm_tpu_torch.proofs.r1cs import R1CSProof
 from zkvm_tpu_torch.proofs.rangeproof import RangeProof, batch_verify
@@ -53,6 +56,29 @@ def test_entry_point_without_device_needs_cuda():
                                          PedersenGens(), BulletproofGens(1))
 
 
+def test_engine_entry_points_without_device_need_cuda():
+    """The default engine is a TorchEngine on the card: without one, the
+    engine and the entry points that ride it raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchEngine()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_engine()
+    label1, n, _, recs1 = fixture.load()
+    label, _, recs = fixture.load_mixed()
+    wire, vcs = next(r for r in recs if len(r[1]) == 2)
+    bp, pc = BulletproofGens(n, 2), PedersenGens()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RangeProof.from_bytes(wire).verify_multiple(
+            bp, pc, ProofTranscript(label), vcs, n)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        batch_verify([RangeProof.from_bytes(recs1[0][0]),
+                      RangeProof.from_bytes(wire)], bp, pc,
+                     [ProofTranscript(label1), ProofTranscript(label)],
+                     [recs1[0][1], vcs], n)
+
+
 def test_kernel_wrappers_refuse_non_cuda_devices():
     """A wrapper takes its plain version only for a CPU tensor; anything
     else must be a CUDA tensor, never a silent fallback."""
@@ -79,3 +105,18 @@ def test_kernel_wrappers_refuse_non_cuda_devices():
     with pytest.raises(ValueError, match="CUDA"):
         msm.window_totals_small(pts, torch.zeros((64, 32), dtype=torch.int32,
                                                  device="meta"), 8)
+    keys = torch.empty((2, 64), dtype=torch.int64, device="meta")
+    offsets = torch.empty((2, 129), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        sort.bitonic_sort(keys)
+    with pytest.raises(ValueError, match="CUDA"):
+        gather.gather_words(torch.empty((64, 32), dtype=torch.int32,
+                                        device="meta"), keys)
+    with pytest.raises(ValueError, match="CUDA"):
+        msm.bucket_accumulate_words(
+            keys, offsets, torch.empty((2, 64, 32), dtype=torch.int32,
+                                       device="meta"), 128, 6)
+    with pytest.raises(ValueError, match="CUDA"):
+        msm.bucket_accumulate_affine(
+            keys, offsets, torch.empty((2, 64, 16), dtype=torch.int32,
+                                       device="meta"), 128, 6)

@@ -1,5 +1,6 @@
-"""PyTorch/CUDA port of the tpu-zkvm verifier: batched 64-bit range-proof
-verification on an NVIDIA Hopper card.
+"""PyTorch/CUDA port of the tpu-zkvm verifier on an NVIDIA Hopper card:
+range-proof (batched, aggregated, mixed) and R1CS gadget-proof
+verification through a device MSM engine.
 
 Plain tensor code is PyTorch; the device kernels are hand-written CUDA
 C++ for sm_90a under ``kernels/csrc``.  The package imports nothing of

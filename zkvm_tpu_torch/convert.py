@@ -1,5 +1,5 @@
-"""Carries the device inputs of the JAX package's batch_msm_check and
-txbatch_msm_check across.
+"""Carries the device inputs of the JAX package's batch_msm_check,
+txbatch_msm_check and window_totals_from_words across.
 
 Both packages keep the same canonical word layouts at this boundary, so
 conversion is a reinterpretation of the uint32 words as int32 tensors on
@@ -34,3 +34,12 @@ def from_jax_split_inputs(static_words, dyn_enc_words, static_sc_words,
     return tuple(to_device(np.asarray(a, np.uint32), device)
                  for a in (static_words, dyn_enc_words, static_sc_words,
                            dyn_sc_words))
+
+
+def from_jax_msm_words(point_words, scalar_words, device="cuda"):
+    """The JAX package's pallas_msm.pack_words output as numpy arrays —
+    point_words (4, 8, n) and scalar_words (8, n), uint32 — -> the port's
+    frontend.window_totals_from_words tensors on `device`.  Its padding
+    (identity points with zero scalars) may stay: it changes no sum."""
+    return tuple(to_device(np.asarray(a, np.uint32), device)
+                 for a in (point_words, scalar_words))

@@ -5,6 +5,9 @@ tests/test_torch_r1cs_fixture.py make them with the JAX package's prover).
 Range proofs (little-endian): magic b"ZKRP0001", u32 n, u32 m, u32 count,
 u32 label length, the transcript label, then per proof its m value
 commitments (32 bytes each) and its wire bytes (224 + 64 lg(nm) + 64).
+Range proofs of mixed aggregation sizes: magic b"ZKRPM001", u32 n, u32
+count, u32 label length, the label, then per proof u32 m, its m value
+commitments and its wire bytes.
 
 R1CS proofs (little-endian): magic b"ZKR1CS01", u32 label length, the
 label, u32 circuit-name length, the name, u32 generator capacity (the
@@ -23,9 +26,11 @@ from pathlib import Path
 
 DATA = Path(__file__).resolve().parent / "data"
 FIXTURE = DATA / "rangeproofs_n64_m1.bin"
+FIXTURE_MIXED = DATA / "rangeproofs_n64_mixed.bin"
 R1CS_CLOAK = DATA / "r1cs_cloak4x4_64.bin"
 R1CS_RANGE = DATA / "r1cs_range512x64.bin"
 MAGIC = b"ZKRP0001"
+MIXED_MAGIC = b"ZKRPM001"
 R1CS_MAGIC = b"ZKR1CS01"
 
 
@@ -62,6 +67,45 @@ def load(path=FIXTURE):
         records.append((rec[32 * m:], [rec[32 * j: 32 * j + 32]
                                        for j in range(m)]))
     return label, n, m, records
+
+
+def dump_mixed(path, label: bytes, n: int, records) -> None:
+    """records: [(wire bytes, [value commitments])], any m each."""
+    blob = bytearray(MIXED_MAGIC + struct.pack("<III", n, len(records),
+                                               len(label)) + label)
+    for wire, vcs in records:
+        m = len(vcs)
+        if m == 0 or len(wire) != wire_len(n, m):
+            raise ValueError("record does not match n and its m")
+        blob += struct.pack("<I", m) + b"".join(vcs) + wire
+    Path(path).write_bytes(bytes(blob))
+
+
+def load_mixed(path=FIXTURE_MIXED):
+    """-> (label, n, [(wire bytes, [value commitments])]), m = len(vcs)."""
+    data = Path(path).read_bytes()
+    if data[:8] != MIXED_MAGIC:
+        raise ValueError("not a mixed range-proof fixture")
+    n, count, llen = struct.unpack_from("<III", data, 8)
+    off = 20
+    label = data[off: off + llen]
+    off += llen
+    records = []
+    for _ in range(count):
+        if off + 4 > len(data):
+            raise ValueError("truncated mixed range-proof fixture")
+        (m,) = struct.unpack_from("<I", data, off)
+        off += 4
+        size = 32 * m + wire_len(n, m)
+        rec = data[off: off + size]
+        if m == 0 or len(rec) != size:
+            raise ValueError("truncated mixed range-proof fixture")
+        off += size
+        records.append((rec[32 * m:], [rec[32 * j: 32 * j + 32]
+                                       for j in range(m)]))
+    if off != len(data):
+        raise ValueError("trailing bytes in a mixed range-proof fixture")
+    return label, n, records
 
 
 # ------------------------------------------------------------------- R1CS

@@ -45,6 +45,12 @@ SIGNATURES = {
     "point_add": ("zkvm_point_add", [_P, _P, _P, _L, _P]),
     "fe_mul": ("zkvm_fe_mul", [_P, _P, _P, _L, _P]),
     "fe_add": ("zkvm_fe_add", [_P, _P, _P, _L, _P]),
+    "bitonic_sort": ("zkvm_bitonic_sort", [_P, _L, _L, _P]),
+    "gather_words": ("zkvm_gather_words", [_P, _P, _P, _L, _I, _P]),
+    "bucket_accumulate_words": ("zkvm_bucket_accumulate_words",
+                                [_P, _P, _P, _P, _L, _I, _I, _I, _P]),
+    "bucket_accumulate_affine": ("zkvm_bucket_accumulate_affine",
+                                 [_P, _P, _P, _P, _L, _I, _I, _I, _P]),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}

@@ -25,7 +25,6 @@ and K4 over the same resident generator columns.
 
 from __future__ import annotations
 
-import hashlib
 import time
 import weakref
 
@@ -35,11 +34,12 @@ import torch
 from ..constants import L
 from ..oracle import scalar
 from ..proofs.errors import FormatError
+from ..proofs.rangeproof import batch_weight
 from ..proofs.rangeproof import delta as delta_fn
 from . import scalarmod as sm
 from .combine import horner_check
 from .decompress import ristretto_decode
-from .msm import best_wbits, route, window_totals
+from .msm import MsmConfig, best_wbits, route, window_totals
 from .words import (encoding_words, points_words, scalar_words, to_device,
                     words_to_ints, words_to_points)
 
@@ -146,36 +146,38 @@ def batch_msm_scalars(params_words, bbB_words, n: int, m: int, lg: int):
 
 def batch_msm_check(static_words: torch.Tensor, dyn_words: torch.Tensor,
                     params_words: torch.Tensor, bbB_words: torch.Tensor,
-                    n: int, m: int, lg: int, wbits: int) -> torch.Tensor:
+                    n: int, m: int, lg: int, wbits: int,
+                    config: MsmConfig | None = None) -> torch.Tensor:
     """The device half: static_words (4, 8, 2 + 2nm) resident generator
     words, dyn_words (8, nb·k) raw encodings, params_words (nb, 9 + lg, 8),
     bbB_words (2, 8) (all int32 bit patterns, on one device) -> int32 scalar
-    tensor, 1 iff the batch accepts."""
+    tensor, 1 iff the batch accepts.  config picks the bucket pipeline's
+    stages (msm.MsmConfig; None reads the environment)."""
     digits = sm.signed_digits(
         batch_msm_scalars(params_words, bbB_words, n, m, lg), wbits)
     dyn_pts, ok = ristretto_decode(dyn_words)
     points = torch.cat([words_to_points(static_words), dyn_pts], dim=2)
-    totals = window_totals(points, digits, wbits)
+    totals = window_totals(points, digits, wbits, config)
     ident = horner_check(totals.unsqueeze(2).contiguous(), wbits)[0]
     return ok.min() & ident
 
 
 def split_msm_check(static_words: torch.Tensor, dyn_enc_words: torch.Tensor,
                     static_scalar_words: torch.Tensor,
-                    dyn_scalar_words: torch.Tensor, wbits: int
-                    ) -> torch.Tensor:
+                    dyn_scalar_words: torch.Tensor, wbits: int,
+                    config: MsmConfig | None = None) -> torch.Tensor:
     """A split mega-check on one device: static_words (4, 8, S) resident
     point words, dyn_enc_words (8, D) raw encodings, static_scalar_words
     (S, 8) and dyn_scalar_words (D, 8) 32-byte scalars below 2^256 (all
     int32 bit patterns) -> int32 scalar tensor, 1 iff every encoding
     decodes (K1's flag) and Σ s_i P_i is the identity.  The counterpart of
-    the JAX package's txbatch_msm_check."""
+    the JAX package's txbatch_msm_check; config as batch_msm_check's."""
     scalars = torch.cat([sm.decode_words_last(static_scalar_words),
                          sm.decode_words_last(dyn_scalar_words)], dim=1)
     digits = sm.signed_digits(scalars, wbits)
     dyn_pts, ok = ristretto_decode(dyn_enc_words)
     points = torch.cat([words_to_points(static_words), dyn_pts], dim=2)
-    totals = window_totals(points, digits, wbits)
+    totals = window_totals(points, digits, wbits, config)
     ident = horner_check(totals.unsqueeze(2).contiguous(), wbits)[0]
     return ok.min() & ident
 
@@ -281,12 +283,6 @@ def prepare_batch_inputs(proofs, bp_gens, pc_gens, transcripts,
 
     replays = [p._replay_challenges(bp_gens, pc_gens, t, vcs, n)
                for p, t, vcs in zip(proofs, transcripts, value_commitments)]
-    wires = [p.to_bytes() for p in proofs]
-    wt_digests = [
-        hashlib.sha3_512(entropy + i.to_bytes(8, "little") + w).digest()
-        for i, w in enumerate(wires)
-    ]
-
     # one inversion pass for y, every u, and y - 1 (delta's geometric sum)
     all_u = [u for r in replays for u in r["u"]]
     ys = [r["y"] for r in replays]
@@ -300,7 +296,7 @@ def prepare_batch_inputs(proofs, bp_gens, pc_gens, transcripts,
     for i, (proof, r) in enumerate(zip(proofs, replays)):
         y, z, x, w, c, u = r["y"], r["z"], r["x"], r["w"], r["c"], r["u"]
         a, b = proof.ipp_proof.a % L, proof.ipp_proof.b % L
-        wt = scalar.from_bytes_mod_order_wide(wt_digests[i])
+        wt = batch_weight(entropy, i, proof.to_bytes())
         zz = z * z % L
         allinv = 1
         for ui in u_invs[i]:
@@ -355,10 +351,12 @@ def require_device(device) -> torch.device:
 def batch_verify_device(proofs, bp_gens, pc_gens, transcripts,
                         value_commitments, n: int,
                         entropy: bytes = b"\x01" * 32, device="cuda",
-                        timings: dict | None = None) -> bool:
+                        timings: dict | None = None,
+                        config: MsmConfig | None = None) -> bool:
     """Batched verification through the device half; True iff the batch
-    accepts.  An invalid point encoding makes it False; malformed proofs
-    raise FormatError/ProofError.  timings, when given, receives host_s,
+    accepts.  Every proof must aggregate the same number m of values.  An
+    invalid point encoding makes it False; malformed proofs raise
+    FormatError/ProofError.  timings, when given, receives host_s,
     device_s (upload, device chain and the verdict's fetch), msm_size and
     wbits."""
     dev = require_device(device)
@@ -371,7 +369,7 @@ def batch_verify_device(proofs, bp_gens, pc_gens, transcripts,
     wbits = best_wbits(total)
     t_host = time.perf_counter()
     flag = batch_msm_check(static, to_device(dyn, dev), to_device(params, dev),
-                           to_device(bbB, dev), n, m, lg, wbits)
+                           to_device(bbB, dev), n, m, lg, wbits, config)
     verdict = bool(flag.item())
     t_dev = time.perf_counter()
     if timings is not None:

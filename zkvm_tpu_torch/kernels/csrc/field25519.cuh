@@ -191,6 +191,29 @@ __device__ __forceinline__ Fe fe_select(bool m, const Fe& a, const Fe& b) {
     return r;
 }
 
+// Limbs of a field element from its 8 little-endian u32 words (the twin of
+// kernels/words.py field_words_to_limbs): limb i holds bits [off_i,
+// off_i + W_i) with off_i = ceil(25.5 i); bit 255 is dropped.  Canonical
+// words give canonical, nonnegative limbs.
+__device__ __forceinline__ Fe fe_from_words(const uint32_t* __restrict__ w) {
+    uint32_t v[8];
+    const uint4 lo = *reinterpret_cast<const uint4*>(w);
+    const uint4 hi = *reinterpret_cast<const uint4*>(w + 4);
+    v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+    v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+    Fe r;
+#pragma unroll
+    for (int i = 0; i < 10; i++) {
+        const int off = (51 * i + 1) >> 1;
+        const int wd = limb_width(i);
+        const int k = off >> 5, s = off & 31;
+        uint64_t x = v[k] >> s;
+        if (s + wd > 32) x |= (uint64_t)v[k + 1] << (32 - s);
+        r.v[i] = (int32_t)(x & ((1u << wd) - 1));
+    }
+    return r;
+}
+
 // ------------------------------------------------------------ Edwards points
 
 __device__ __forceinline__ Pt pt_identity() {

@@ -109,6 +109,54 @@ def is_negative(h: torch.Tensor) -> torch.Tensor:
     return (freeze(h)[0] & 1) == 1
 
 
+def invert(z: torch.Tensor) -> torch.Tensor:
+    """z^(p - 2) = 1/z (0 for z = 0), by ref10's fe_invert chain: 254
+    squarings and 11 multiplications."""
+    def sq_n(x, k):
+        for _ in range(k):
+            x = sqr(x)
+        return x
+
+    z2 = sqr(z)
+    z9 = mul(sq_n(z2, 2), z)
+    z11 = mul(z9, z2)
+    z_5_0 = mul(sqr(z11), z9)                  # z^(2^5 - 1)
+    z_10_0 = mul(sq_n(z_5_0, 5), z_5_0)
+    z_20_0 = mul(sq_n(z_10_0, 10), z_10_0)
+    z_40_0 = mul(sq_n(z_20_0, 20), z_20_0)
+    z_50_0 = mul(sq_n(z_40_0, 10), z_10_0)
+    z_100_0 = mul(sq_n(z_50_0, 50), z_50_0)
+    z_200_0 = mul(sq_n(z_100_0, 100), z_100_0)
+    z_250_0 = mul(sq_n(z_200_0, 50), z_50_0)
+    return mul(sq_n(z_250_0, 5), z11)          # z^(2^255 - 21)
+
+
+def _prefix_products(z: torch.Tensor) -> torch.Tensor:
+    """Inclusive products along the last axis, Hillis-Steele: after the
+    step with offset d every position holds the product of its last 2d
+    factors; ceil(log2 n) steps."""
+    n = z.shape[-1]
+    d = 1
+    while d < n:
+        z = torch.cat([z[..., :d], mul(z[..., :n - d], z[..., d:])], dim=-1)
+        d *= 2
+    return z
+
+
+def batch_invert(z: torch.Tensor) -> torch.Tensor:
+    """(10, n) carried limbs, none zero mod p -> their inverses, by the
+    Montgomery trick (the JAX package's pallas_msm.batch_zinv_lm): prefix
+    and suffix products, one inversion of the whole product, then
+    1/z_i = prefix_(i-1) suffix_(i+1) / Π z."""
+    pre = _prefix_products(z)
+    suf = _prefix_products(z.flip(-1)).flip(-1)
+    tinv = invert(pre[..., -1:])
+    one = const(1, z[..., :1])
+    pre_ex = torch.cat([one.expand_as(z[..., :1]), pre[..., :-1]], dim=-1)
+    suf_ex = torch.cat([suf[..., 1:], one.expand_as(z[..., :1])], dim=-1)
+    return mul(mul(pre_ex, suf_ex), tinv)
+
+
 def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """mask ? a : b per element (mask broadcasts over the limb axis)."""
     return torch.where(mask.unsqueeze(0), a, b)

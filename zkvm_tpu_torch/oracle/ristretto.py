@@ -16,9 +16,11 @@ from . import edwards, field
 
 
 class RistrettoPoint:
-    """An element of the Ristretto255 group, internally an Edwards point."""
+    """An element of the Ristretto255 group, internally an Edwards point.
+    `_words` caches the point's canonical words for the device engine
+    (kernels/engine.py)."""
 
-    __slots__ = ("ep",)
+    __slots__ = ("ep", "_words")
 
     def __init__(self, ep: edwards.Point):
         self.ep = ep
@@ -125,6 +127,11 @@ class RistrettoPoint:
 
     def __repr__(self):
         return f"RistrettoPoint({self.compress().hex()})"
+
+
+def decompress_many(encodings: list[bytes]) -> list[RistrettoPoint]:
+    """DECODE every encoding; raises ValueError on the first invalid one."""
+    return [RistrettoPoint.decompress(b) for b in encodings]
 
 
 def _elligator_map(t: int) -> edwards.Point:

@@ -3,19 +3,28 @@
 Upstream counterpart: bulletproofs/src/range_proof/mod.rs —
 RangeProof::{verify_multiple, to_bytes, from_bytes} and the batch seam.
 The verifier's whole check is ONE multiscalar multiplication; a batch of
-proofs combines those checks with random weights into one larger MSM,
-which kernels/batch_verify_device.py runs on the card.
+proofs combines those checks with random weights into one larger MSM.
+When every proof of a batch aggregates the same number m of values,
+kernels/batch_verify_device.py synthesizes the scalars on the card;
+otherwise, and for one aggregated proof (verify_multiple), the host
+assembles the MSM as the JAX package does and an Engine (proofs/engine.py,
+kernels/engine.py) checks it on the card.
 """
 
 from __future__ import annotations
 
+import hashlib
+import time
 from dataclasses import dataclass
 
 from ..constants import L
 from ..oracle import scalar
+from ..oracle.ristretto import RistrettoPoint, decompress_many
+from .engine import Engine, resolve_engine
 from .errors import FormatError, ProofError, VerificationError
 from .generators import BulletproofGens, PedersenGens
 from .ipp import InnerProductProof
+from .scalarvec import ScalarVec
 from .transcript import ProofTranscript
 
 
@@ -106,6 +115,80 @@ class RangeProof:
             u_challenges.append(transcript.challenge_scalar(b"u"))
         return {"y": y, "z": z, "x": x, "w": w, "c": c, "u": u_challenges}
 
+    def _job_parts(self, bp_gens: BulletproofGens, pc_gens: PedersenGens,
+                   transcript: ProofTranscript, value_commitments: list[bytes],
+                   n: int, decompressed: list | None = None) -> "_JobParts":
+        """Replay the transcript and emit the mega-check MSM's sections,
+        the g/h columns as packed ScalarVecs (the JAX package's ScalarVec
+        chain, its ground truth):
+            g_i = -z - a s_i,   h_i = z + y^-i (z^2 z_and_2_i - b / s_i).
+        Point encodings are decoded on the host (ValueError on an invalid
+        one) unless `decompressed` brings them."""
+        m = len(value_commitments)
+        rep = self._replay_challenges(bp_gens, pc_gens, transcript,
+                                      value_commitments, n)
+        y, z, x, w, c, u = (rep[k] for k in ("y", "z", "x", "w", "c", "u"))
+        a, b = self.ipp_proof.a % L, self.ipp_proof.b % L
+        zz = z * z % L
+        u_sq, u_inv_sq, s_v = self.ipp_proof.scalars_from_challenges(u)
+        exp_y_inv_v = ScalarVec.powers(scalar.invert(y), n * m)
+        exp_2_v = ScalarVec.powers(2, n)
+        z_pows = [pow(z, j, L) for j in range(m)]
+        z2_v = ScalarVec.concat(*(exp_2_v.scale(zj) for zj in z_pows))
+        g_v = s_v.axpb(-a, -z)
+        h_v = (z2_v.scale(zz).sub(s_v.reverse().scale(b)).mul(exp_y_inv_v)
+               .axpb(1, z))
+        b_s = (w * ((self.t_x - a * b) % L)
+               + c * ((delta(n, m, y, z) - self.t_x) % L)) % L
+        cx = c * x % L
+        head = [1, x, cx, cx * x % L] + list(u_sq) + list(u_inv_sq)
+        if decompressed is None:
+            decompressed = decompress_many(
+                self.dyn_compressed(value_commitments))
+        k = len(head)
+        return _JobParts(
+            head=head, bb_s=(-self.e_blinding - c * self.t_x_blinding) % L,
+            b_s=b_s, g_v=g_v, h_v=h_v,
+            v_s=[c * zz % L * zj % L for zj in z_pows],
+            head_points=decompressed[:k], v_points=decompressed[k:])
+
+    def verification_job(self, bp_gens: BulletproofGens,
+                         pc_gens: PedersenGens, transcript: ProofTranscript,
+                         value_commitments: list[bytes], n: int
+                         ) -> tuple[list[int], list[RistrettoPoint]]:
+        """The one-proof mega-check as (scalars, points) that must sum to
+        the identity, in the JAX package's order: A, S, T1, T2, L.., R..,
+        B_blinding, B, G(n, m), H(n, m), V.."""
+        m = len(value_commitments)
+        p = self._job_parts(bp_gens, pc_gens, transcript, value_commitments,
+                            n)
+        scalars = (p.head + [p.bb_s, p.b_s] + p.g_v.to_ints()
+                   + p.h_v.to_ints() + p.v_s)
+        points = (p.head_points + [pc_gens.B_blinding, pc_gens.B]
+                  + bp_gens.G(n, m) + bp_gens.H(n, m) + p.v_points)
+        return scalars, points
+
+    def verify_multiple(self, bp_gens: BulletproofGens, pc_gens: PedersenGens,
+                        transcript: ProofTranscript,
+                        value_commitments: list[bytes], n: int,
+                        device=None, engine: Engine | None = None) -> None:
+        """One aggregated proof, one MSM (upstream verify_multiple).  The
+        MSM runs on `engine`, else a TorchEngine on `device`, else the
+        default engine (the card).  Raises VerificationError on reject,
+        FormatError/ProofError on malformed input and ValueError on an
+        invalid point encoding, as the JAX package does."""
+        eng = resolve_engine(device, engine)
+        scalars, points = self.verification_job(bp_gens, pc_gens, transcript,
+                                                value_commitments, n)
+        if not eng.msm_is_identity(scalars, points):
+            raise VerificationError("range proof verification failed")
+
+    def verify_single(self, bp_gens: BulletproofGens, pc_gens: PedersenGens,
+                      transcript: ProofTranscript, V: bytes, n: int,
+                      device=None, engine: Engine | None = None) -> None:
+        self.verify_multiple(bp_gens, pc_gens, transcript, [V], n, device,
+                             engine)
+
     def to_bytes(self) -> bytes:
         return (
             self.A + self.S + self.T_1 + self.T_2
@@ -127,6 +210,74 @@ class RangeProof:
         return RangeProof(A, S, T_1, T_2, t_x, t_x_blinding, e_blinding, ipp)
 
 
+@dataclass
+class _JobParts:
+    """Sections of one proof's mega-check MSM; the g/h columns stay packed
+    ScalarVecs."""
+    head: list          # [1, x, cx, cxx] + u_sq + u_inv_sq
+    bb_s: int           # B_blinding's scalar
+    b_s: int            # B's scalar
+    g_v: ScalarVec      # n m entries
+    h_v: ScalarVec      # n m entries
+    v_s: list           # the value commitments' scalars (m)
+    head_points: list   # A, S, T1, T2, L.., R.. (decoded)
+    v_points: list      # V.. (decoded)
+
+
+def batch_weight(entropy: bytes, idx: int, wire: bytes) -> int:
+    """The random weight of proof `idx` of a batch (the JAX package's):
+    SHA3-512(entropy || idx as u64 || wire) reduced mod ℓ."""
+    return scalar.from_bytes_mod_order_wide(hashlib.sha3_512(
+        entropy + idx.to_bytes(8, "little") + wire).digest())
+
+
+def batch_verification_job(proofs: list[RangeProof], bp_gens: BulletproofGens,
+                           pc_gens: PedersenGens,
+                           transcripts: list[ProofTranscript],
+                           value_commitments: list[list[bytes]], n: int,
+                           entropy: bytes = b"\x01" * 32
+                           ) -> tuple[ScalarVec, list[RistrettoPoint]]:
+    """Host half of batched verification for any mix of aggregation sizes
+    (the JAX package's batch_verification_job): every proof's mega-check
+    times its random weight, in one MSM (scalars, points) that must sum to
+    the identity.  The static columns B_blinding, B, G(n, max m), H(n,
+    max m) are shared, so the MSM has 2 + 2 n max_m + Σ_p (4 + 2 lg(n m_p)
+    + m_p) points.  Every encoding is decoded on the host first
+    (ValueError on an invalid one)."""
+    if not proofs or not (len(proofs) == len(transcripts)
+                          == len(value_commitments)):
+        raise FormatError("empty batch, or proofs, transcripts and value "
+                          "commitments of different counts")
+    max_m = max(len(vc) for vc in value_commitments)
+    nm_max = n * max_m
+    static_points = ([pc_gens.B_blinding, pc_gens.B] + bp_gens.G(n, max_m)
+                     + bp_gens.H(n, max_m))
+    all_dyn = decompress_many([enc for p, vcs in zip(proofs, value_commitments)
+                               for enc in p.dyn_compressed(vcs)])
+    # static scalars accumulate as ints (reduced once, at the end)
+    static_acc = [0] * (2 + 2 * nm_max)
+    dyn_scalars: list[int] = []
+    dyn_points: list[RistrettoPoint] = []
+    off = 0
+    for idx, (proof, transcript, vcs) in enumerate(
+            zip(proofs, transcripts, value_commitments)):
+        k = len(proof.dyn_compressed(vcs))
+        p = proof._job_parts(bp_gens, pc_gens, transcript, vcs, n,
+                             decompressed=all_dyn[off: off + k])
+        off += k
+        wt = batch_weight(entropy, idx, proof.to_bytes())
+        dyn_scalars.extend(s * wt % L for s in p.head + p.v_s)
+        dyn_points.extend(p.head_points + p.v_points)
+        static_acc[0] += wt * p.bb_s
+        static_acc[1] += wt * p.b_s
+        for i, g in enumerate(p.g_v.to_ints(), 2):
+            static_acc[i] += wt * g
+        for i, h in enumerate(p.h_v.to_ints(), 2 + nm_max):
+            static_acc[i] += wt * h
+    return (ScalarVec.from_ints(static_acc + dyn_scalars),
+            static_points + dyn_points)
+
+
 def batch_verify(
     proofs: list[RangeProof],
     bp_gens: BulletproofGens,
@@ -135,18 +286,46 @@ def batch_verify(
     value_commitments: list[list[bytes]],
     n: int,
     entropy: bytes = b"\x01" * 32,
-    device: str = "cuda",
+    device=None,
     timings: dict | None = None,
+    engine: Engine | None = None,
 ) -> None:
     """Verify many range proofs in one MSM via a random linear combination.
-    Raises VerificationError when the batch is rejected (an invalid point
-    encoding rejects the batch too) and FormatError/ProofError on
-    malformed input.  Every proof must aggregate the same number m of
-    values.  ``device`` is where the MSM runs; "cpu" takes the kernels'
-    plain PyTorch versions and is what the tests pass."""
+    Raises VerificationError when the batch is rejected and
+    FormatError/ProofError on malformed input.  The MSM runs on `engine`,
+    else a TorchEngine on `device` ("cpu" takes the kernels' plain
+    PyTorch versions, as the tests do), else the default engine (the
+    card).  When every proof aggregates the same m and the engine
+    supports_fused_batch_verify, the fused device path decodes the
+    encodings on the card (an invalid one rejects the batch); otherwise
+    batch_verification_job assembles the MSM on the host (an invalid
+    encoding raises ValueError there), as the JAX package does.  timings,
+    when given, receives host_s (with the engine's packing), device_s,
+    msm_size and wbits."""
     from ..kernels.batch_verify_device import batch_verify_device
+    from ..kernels.msm import best_wbits
 
-    if not batch_verify_device(proofs, bp_gens, pc_gens, transcripts,
-                               value_commitments, n, entropy, device,
-                               timings):
+    eng = resolve_engine(device, engine)
+    same_m = all(len(vc) == len(value_commitments[0])
+                 for vc in value_commitments)
+    if same_m and eng.supports_fused_batch_verify:
+        ok = batch_verify_device(proofs, bp_gens, pc_gens, transcripts,
+                                 value_commitments, n, entropy, eng.device,
+                                 timings, eng.config)
+    else:
+        t0 = time.perf_counter()
+        scalars, points = batch_verification_job(
+            proofs, bp_gens, pc_gens, transcripts, value_commitments, n,
+            entropy)
+        t1 = time.perf_counter()
+        split: dict = {}
+        ok = eng.msm_is_identity(scalars, points, split)
+        if timings is not None:
+            pack_s = split.get("pack_s", 0.0)
+            timings.update(host_s=t1 - t0 + pack_s,
+                           device_s=time.perf_counter() - t1 - pack_s,
+                           msm_size=len(points),
+                           wbits=getattr(eng, "wbits", None)
+                           or best_wbits(len(points)))
+    if not ok:
         raise VerificationError("batch range proof verification failed")

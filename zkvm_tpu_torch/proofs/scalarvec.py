@@ -3,8 +3,9 @@ encodings.
 
 Counterpart of the JAX package's native.ScalarVec, whose C++ module the
 port does not carry: a pure-Python copy of the operations the R1CS
-verifier uses.  The packed buffer is the same byte for byte, so it goes
-to the device as u32 words unchanged (kernels/batch_verify_device.py).
+verifier and the range-proof mega-check use.  The packed buffer is the
+same byte for byte, so it goes to the device as u32 words unchanged
+(kernels/batch_verify_device.py, kernels/frontend.py).
 Operations are elementwise and return new vectors.
 """
 
@@ -59,6 +60,15 @@ class ScalarVec:
     def scale(self, k: int) -> "ScalarVec":
         k = int(k) % L
         return ScalarVec.from_ints(a * k for a in self.to_ints())
+
+    def axpb(self, x: int, b: int) -> "ScalarVec":
+        """self[i] * x + b."""
+        x, b = int(x) % L, int(b) % L
+        return ScalarVec.from_ints(a * x + b for a in self.to_ints())
+
+    @staticmethod
+    def concat(*vecs: "ScalarVec") -> "ScalarVec":
+        return ScalarVec(b"".join(v.buf for v in vecs), sum(v.n for v in vecs))
 
     def inner(self, other: "ScalarVec") -> int:
         if self.n != other.n:

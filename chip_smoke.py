@@ -5,17 +5,22 @@
 1. prints the card's name and power limit, builds the twelve CUDA kernels
    (K1 ristretto_decode, K2 bucket_accumulate, K3 bucket_fold, K4
    horner_check, K5 seg_combine, K6 point_add, K7 fe_mul, K8 fe_add, K9
-   bitonic_sort, K10 gather_words, K11 bucket_accumulate_words, K12
+   radix_sort, K10 gather_words, K11 bucket_accumulate_words, K12
    bucket_accumulate_affine) from kernels/csrc, one nvcc each in parallel,
    and prints the build time and each kernel's ptxas registers and spills;
 2. holds K1-K4 against their plain PyTorch versions on the card at the
    range-proof path's shapes (nb = 1024 proofs of 64 bits, m = 1), words
    and flags exactly equal, and times both (CUDA events and the
-   profiler's device time);
+   profiler's device time); K4's verdict and folded point (also in
+   canonical words) on the batch's totals, which sum to the identity, and
+   on those of the same MSM with one digit raised by one, which sum to
+   that digit's point;
 3. holds K9 and K10 against their plain versions on the key rows of the
-   nb = 1024 and nb = 4096 batches' MSMs, and K11 and K12 on the nb = 1024
-   MSM (K11 also word for word against K2, K12 as points), and times them
-   beside torch.sort (K9) and torch indexing (K10);
+   nb = 1024 and nb = 4096 batches' MSMs (K9 sorting the (|digit|, sign)
+   bits, equal also to torch.sort), K9 at full width on random 63-bit
+   keys of the nb = 4096 shape, and K11 and K12 on the nb = 1024 MSM (K11
+   also word for word against K2, K12 as points), and times them beside
+   torch.sort (K9) and torch indexing (K10);
 4. with every launch count set to 0, runs the range-proof path through its
    entry point zkvm_tpu_torch.proofs.rangeproof.batch_verify at nb = 1024
    and nb = 4096: a valid batch must accept, a batch with one t_x changed
@@ -131,16 +136,13 @@ def device_ms(fn, kernels, reps):
     return None
 
 
-def bitonic_launches(n):
-    """K9's launches of its tile and global kernels for rows of n keys
-    (csrc/bitonic_sort.cu): one tile pass for sizes up to the tile, then
-    per larger size its strides of a tile or more and one tile pass."""
-    npad = 1 << max(n - 1, 1).bit_length()
-    tile = min(4096, npad)
-    sizes = range(tile.bit_length(), npad.bit_length())
-    return {"bitonic_tile_kernel": 1 + len(sizes),
-            "bitonic_global_kernel": sum(k - tile.bit_length() + 1
-                                         for k in sizes)}
+def radix_launches(lo_bit, hi_bit):
+    """K9's launches of each of its three kernels for one sort by bits
+    [lo_bit, hi_bit) (csrc/radix_sort.cu): one each per pass."""
+    from zkvm_tpu_torch.kernels.sort import passes
+    k = len(passes(lo_bit, hi_bit))
+    return {"radix_hist_kernel": k, "radix_scan_kernel": k,
+            "radix_scatter_kernel": k}
 
 
 def bound_ms(nbytes, products):
@@ -166,6 +168,16 @@ def same_points(a, b):
     return all(bool(F.is_zero(F.sub(F.mul(A[i], B[2]),
                                     F.mul(B[i], A[2]))).all())
                for i in (0, 1, 3))
+
+
+def same_ristretto(a, b):
+    """(4, 10, k) points equal as Ristretto elements (RFC 9496's equality,
+    X1 Y2 = Y1 X2 or Y1 Y2 = X1 X2): equal up to the 4-torsion that the
+    identity test also ignores."""
+    from zkvm_tpu_torch.kernels import field as F
+    (X1, Y1, _, _), (X2, Y2, _, _) = F.unpack_points(a), F.unpack_points(b)
+    return bool((F.is_zero(F.sub(F.mul(X1, Y2), F.mul(Y1, X2)))
+                 | F.is_zero(F.sub(F.mul(Y1, Y2), F.mul(X1, X2)))).all())
 
 
 def main():
@@ -304,18 +316,45 @@ def main():
         bound=bound_ms(buckets_k.numel() * 4 + totals_k.numel() * 4,
                        k3_adds * ADD + nw * int(math.log2(r)) * DBL))
 
+    # K4 on the batch's totals (identity) and on those of the same MSM with
+    # one digit raised by one, whose sum is that digit's point
     totals4 = totals_k.unsqueeze(2).contiguous()
-    check_k = combine.horner_check(totals4, wbits)
-    check_p = combine.horner_check_plain(totals4, wbits)
-    torch.cuda.synchronize()
-    require(torch.equal(check_k, check_p), "K4 verdict differs from the plain version")
-    require(int(check_k[0]) == 1, "the valid batch's MSM is not the identity")
+    bump = int((digits[:, 0] < nbk).nonzero()[0])
+    digits_bad = digits.clone()
+    digits_bad[bump, 0] += 1
+    bad4 = msm.window_totals_large(points, digits_bad, wbits,
+                                   msm.MsmConfig()).unsqueeze(2).contiguous()
+    k4_err = 0
+    for tag, tot, want in (("identity", totals4, 1), ("non-identity", bad4, 0)):
+        fold_k, check_k = combine.horner_fold(tot, wbits), combine.horner_check(
+            tot, wbits)
+        fold_p = F.pack_points(combine.horner_fold_plain(tot, wbits))
+        check_p = combine.horner_check_plain(tot, wbits)
+        torch.cuda.synchronize()
+        canon_k, canon_p = points_to_words(fold_k), points_to_words(fold_p)
+        require(torch.equal(check_k, check_p),
+                f"K4 verdict differs from the plain version ({tag})")
+        require(torch.equal(fold_k, fold_p) and torch.equal(canon_k, canon_p),
+                f"K4 folded point differs from the plain version ({tag})")
+        require(int(check_k[0]) == want, f"K4 verdict {int(check_k[0])} on "
+                                         f"the {tag} totals")
+        k4_err = max(k4_err, max_abs_err(check_k, check_p),
+                     max_abs_err(canon_k, canon_p))
+    # the valid MSM sums to the identity up to 4-torsion, so the raised
+    # one sums to the digit's point up to 4-torsion
+    require(same_ristretto(fold_k, points[:, :, bump:bump + 1]),
+            "K4 folded the raised MSM to another point than the digit's")
+    print(f"K4: verdict and folded point equal to the plain version's on the "
+          f"identity and non-identity totals ({nw} windows; the raised MSM "
+          f"folds to point {bump})", flush=True)
     results["K4"] = dict(
-        err=max_abs_err(check_k, check_p),
+        err=k4_err,
         ms=cuda_ms(lambda: combine.horner_check(totals4, wbits), 20),
         plain_ms=cuda_ms(lambda: combine.horner_check_plain(totals4, wbits), 2),
-        bound=bound_ms(totals4.numel() * 4 + 4,
-                       (nw - 1) * (wbits * DBL + ADD)))
+        bound=bound_ms(totals4.numel() * 4 + 4 + 160,
+                       (nw - 1) * (wbits * DBL + 8 * MUL) + nw * MUL))
+    k4_levels = (nw - 1) * (2 * wbits + 2) + 1      # cached forms, then chain
+    k4_muls = (nw - 1) * (8 * wbits + 9)            # one thread's, in a row
     k1_4 = {"K1": (lambda: decompress.ristretto_decode(words),
                    "ristretto_decode_kernel"),
             "K2": (lambda: msm.bucket_accumulate(keys, offsets, points, nbk,
@@ -331,8 +370,15 @@ def main():
         print(f"{k}: kernel_ms={v['ms']:.4f} "
               f"device_only_ms={fmt_ms(v['dev_ms'])} "
               f"plain_ms={v['plain_ms']:.2f} "
-              f"bound_ms={v['bound'][0]:.5f} ({v['bound'][1]}) "
-              f"max_abs_err={v['err']} launches_per_verify=1", flush=True)
+              f"bound_ms={v['bound'][0]:.7f} ({v['bound'][1]}) "
+              f"max_abs_err={v['err']} launches_per_verify=1 [{smi}]",
+              flush=True)
+    k4_dev = results["K4"]["dev_ms"]
+    print(f"K4 chain: {k4_levels} dependent field multiplications (a "
+          f"one-thread chain runs {k4_muls} in a row); per level "
+          f"{results['K4']['ms'] / k4_levels * 1e3:.5f} us by events, "
+          f"{fmt_ms(None if k4_dev is None else k4_dev / k4_levels * 1e3)} us "
+          f"device-only [{smi}]", flush=True)
 
     # stages of the device half at this shape, and window widths around
     # the cost model's choice (sort + K2 + K3 per width)
@@ -371,21 +417,37 @@ def main():
     points4 = torch.cat([words_to_points(static),
                          decompress.ristretto_decode(words4)[0]], dim=2)
 
-    def k9_k10(tag, dg, pts, w):
-        """K9 and K10 on one MSM's key rows; returns their results."""
-        raw, sh = msm.pack_keys(dg)
-        s_k, s_p = sort.bitonic_sort(raw), sort.bitonic_sort_plain(raw)
+    rs_keys = np.random.default_rng(2027)
+
+    def k9(tag, raw, lo, hi):
+        """K9 sorting raw by bits [lo, hi), against its plain version and
+        torch.sort; returns its results and the sorted keys."""
+        s_k, s_p = sort.radix_sort(raw, lo, hi), sort.radix_sort_plain(raw, lo,
+                                                                       hi)
         s_lib = torch.sort(raw, dim=1).values
         torch.cuda.synchronize()
         require(torch.equal(s_k, s_p) and torch.equal(s_k, s_lib),
                 f"K9 differs from its plain version or torch.sort ({tag})")
-        k9 = dict(err=max_abs_err(s_k, s_p),
-                  ms=cuda_ms(lambda: sort.bitonic_sort(raw), 10),
-                  dev_ms=device_ms(lambda: sort.bitonic_sort(raw),
-                                   bitonic_launches(raw.shape[1]), 5),
-                  plain_ms=cuda_ms(lambda: sort.bitonic_sort_plain(raw), 2),
-                  lib_ms=cuda_ms(lambda: torch.sort(raw, dim=1), 10),
-                  bound=bound_ms(2 * raw.numel() * 8, 0))
+        v = dict(err=max_abs_err(s_k, s_p),
+                 ms=cuda_ms(lambda: sort.radix_sort(raw, lo, hi), 10),
+                 dev_ms=device_ms(lambda: sort.radix_sort(raw, lo, hi),
+                                  radix_launches(lo, hi), 5),
+                 plain_ms=cuda_ms(lambda: sort.radix_sort_plain(raw, lo, hi),
+                                  2),
+                 lib_ms=cuda_ms(lambda: torch.sort(raw, dim=1), 10),
+                 bound=bound_ms(2 * raw.numel() * 8, 0))
+        print(f"K9 {tag} ({tuple(raw.shape)} keys, bits [{lo}, {hi}), "
+              f"{3 * len(sort.passes(lo, hi))} kernel launches): "
+              f"kernel_ms={v['ms']:.4f} device_only_ms={fmt_ms(v['dev_ms'])} "
+              f"plain_ms={v['plain_ms']:.3f} library_ms={v['lib_ms']:.4f} "
+              f"bound_ms={v['bound'][0]:.5f} ({v['bound'][1]}) "
+              f"max_abs_err={v['err']} [{smi}]", flush=True)
+        return v, s_k
+
+    def k9_k10(tag, dg, pts, w):
+        """K9 and K10 on one MSM's key rows; returns their results."""
+        raw, sh = msm.pack_keys(dg)
+        k9_res, s_k = k9(tag, raw, sh, sh + 1 + w)
         src = msm.point_rows(pts)
         perm = s_k & ((1 << sh) - 1)
         g_k = gather.gather_words(src, perm)
@@ -402,17 +464,19 @@ def main():
                    lib_ms=cuda_ms(lambda: src[perm], 10),
                    bound=bound_ms(src.numel() * 4 + perm.numel() * 8
                                   + g_k.numel() * 4, 0))
-        for k, v in (("K9", k9), ("K10", k10)):
-            print(f"{k} {tag} ({tuple(raw.shape)} keys, w = {w}): "
-                  f"kernel_ms={v['ms']:.4f} device_only_ms="
-                  f"{fmt_ms(v['dev_ms'])} plain_ms={v['plain_ms']:.3f} "
-                  f"library_ms={v['lib_ms']:.4f} bound_ms={v['bound'][0]:.5f} "
-                  f"({v['bound'][1]}) max_abs_err={v['err']} [{smi}]",
-                  flush=True)
-        return k9, k10
+        print(f"K10 {tag} ({tuple(raw.shape)} rows, w = {w}): "
+              f"kernel_ms={k10['ms']:.4f} device_only_ms="
+              f"{fmt_ms(k10['dev_ms'])} plain_ms={k10['plain_ms']:.3f} "
+              f"library_ms={k10['lib_ms']:.4f} "
+              f"bound_ms={k10['bound'][0]:.5f} ({k10['bound'][1]}) "
+              f"max_abs_err={k10['err']} [{smi}]", flush=True)
+        return k9_res, k10
 
     results["K9"], results["K10"] = k9_k10("nb=1024", digits, points, wbits)
     k9_k10("nb=4096", digits4, points4, wbits4)
+    k9("full width", torch.tensor(
+        rs_keys.integers(0, 2**63 - 1, size=tuple(digits4.T.shape),
+                         dtype=np.int64), device=dev), 0, 63)
 
     # K11 and K12 on the nb = 1024 MSM, against their plain versions and K2
     perm = keys & ((1 << shift) - 1)
@@ -470,7 +534,7 @@ def main():
     kernels = [decompress.ristretto_decode, msm.bucket_accumulate,
                msm.bucket_fold, combine.horner_check, pointwise.seg_combine,
                pointwise.point_add, pointwise.mul, pointwise.add,
-               sort.bitonic_sort, gather.gather_words,
+               sort.radix_sort, gather.gather_words,
                msm.bucket_accumulate_words, msm.bucket_accumulate_affine]
 
     def reset():
@@ -906,7 +970,7 @@ def main():
          "zkvm_tpu/kernels/pallas_field.py:104 (entry point, on no verify path)"),
         ("K8", "fe_add", "fe_add.cu",
          "zkvm_tpu/kernels/pallas_field.py:129 (entry point, on no verify path)"),
-        ("K9", "bitonic_sort", "bitonic_sort.cu",
+        ("K9", "radix_sort", "radix_sort.cu",
          "zkvm_tpu/kernels/pallas_msm.py:629"),
         ("K10", "gather_words", "gather_words.cu",
          "zkvm_tpu/kernels/pallas_msm.py:773; zkvm_tpu/kernels/pallas_msm.py:794"),

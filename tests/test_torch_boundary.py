@@ -89,6 +89,9 @@ def test_kernel_wrappers_refuse_non_cuda_devices():
         combine.horner_check(torch.empty((4, 10, 1, 20), dtype=torch.int32,
                                          device="meta"), 13)
     with pytest.raises(ValueError, match="CUDA"):
+        combine.horner_fold(torch.empty((4, 10, 1, 20), dtype=torch.int32,
+                                        device="meta"), 13)
+    with pytest.raises(ValueError, match="CUDA"):
         msm.bucket_fold(torch.empty((4, 10, 256), dtype=torch.int32,
                                     device="meta"), 2, 128)
     pts = torch.empty((4, 10, 64), dtype=torch.int32, device="meta")
@@ -108,7 +111,7 @@ def test_kernel_wrappers_refuse_non_cuda_devices():
     keys = torch.empty((2, 64), dtype=torch.int64, device="meta")
     offsets = torch.empty((2, 129), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
-        sort.bitonic_sort(keys)
+        sort.radix_sort(keys)
     with pytest.raises(ValueError, match="CUDA"):
         gather.gather_words(torch.empty((64, 32), dtype=torch.int32,
                                         device="meta"), keys)

@@ -102,3 +102,30 @@ def test_wbits_choice_and_canonical_recode():
         assert 8 <= msm.best_wbits(n) <= 16
     assert torch.equal(sm.signed_digits(sm.ints_to_limbs([L - 1]), 13),
                        sm.signed_digits(sm.ints_to_limbs([2 * L - 1]), 13))
+
+
+def test_horner_fold_matches_jax_combine_on_non_identity_sum():
+    """combine.horner_fold on two checks of 24 window totals at w = 11 (the
+    range path's nw): random totals, whose sum is no identity, give the
+    point of the JAX package's host combine_window_totals; then T_0 is set
+    to minus the other windows' sum, and the verdict turns to 1."""
+    rs = np.random.default_rng(44)
+    nw, wbits = 24, 11
+    tots = [JPoint.from_uniform_bytes(rs.bytes(64)).ep for _ in range(nw)]
+
+    def packed(pts):
+        return np.stack([ints_to_limbs([p[c] for p in pts]).T
+                         for c in range(4)])
+
+    want = combine_window_totals(packed(tots), wbits)
+    rest = combine_window_totals(packed([oe.IDENTITY] + tots[1:]), wbits)
+    zeroed = [oe.neg(rest)] + tots[1:]
+    words = np.stack([points_words(tots), points_words(zeroed)], axis=2)
+    totals = torch.stack([words_to_points(torch.from_numpy(
+        np.ascontiguousarray(words[:, :, k]).view(np.int32)))
+        for k in range(2)], dim=2)                     # (4, 10, 2, nw)
+
+    got = points_to_ints(combine.horner_fold(totals, wbits))
+    assert _same_point(got[0], want) and not oe.is_identity(want)
+    assert combine.horner_check(totals, wbits).tolist() == [
+        int(JPoint(want).is_identity()), 1]

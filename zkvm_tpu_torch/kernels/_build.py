@@ -40,12 +40,13 @@ SIGNATURES = {
     "bucket_accumulate": ("zkvm_bucket_accumulate",
                           [_P, _P, _P, _P, _L, _I, _I, _I, _P]),
     "bucket_fold": ("zkvm_bucket_fold", [_P, _P, _I, _I, _I, _I, _P]),
-    "horner_check": ("zkvm_horner_check", [_P, _P, _I, _I, _I, _P]),
+    "horner_check": ("zkvm_horner_check", [_P, _P, _P, _I, _I, _I, _P]),
     "seg_combine": ("zkvm_seg_combine", [_P, _P, _P, _P, _L, _P]),
     "point_add": ("zkvm_point_add", [_P, _P, _P, _L, _P]),
     "fe_mul": ("zkvm_fe_mul", [_P, _P, _P, _L, _P]),
     "fe_add": ("zkvm_fe_add", [_P, _P, _P, _L, _P]),
-    "bitonic_sort": ("zkvm_bitonic_sort", [_P, _L, _L, _P]),
+    "radix_sort": ("zkvm_radix_sort", [_P, _P, _P, _P, _L, _L, _I, _I, _I,
+                                       _P]),
     "gather_words": ("zkvm_gather_words", [_P, _P, _P, _L, _I, _P]),
     "bucket_accumulate_words": ("zkvm_bucket_accumulate_words",
                                 [_P, _P, _P, _P, _L, _I, _I, _I, _P]),

@@ -62,7 +62,7 @@ from . import field as F
 from .gather import gather_words
 from .pointwise import point_add, seg_combine
 from .scalarmod import num_windows
-from .sort import bitonic_sort
+from .sort import radix_sort
 from .words import field_words_to_limbs, limbs_to_field_words, points_to_words
 
 FOLD_LANES = 128      # K3 threads per window (the block size)
@@ -139,7 +139,7 @@ def best_wbits(n: int) -> int:
 class MsmConfig:
     """The bucket pipeline's stages (module note).  MsmConfig() is the
     default: torch.sort and K2 over limbs."""
-    sort: bool = False      # K9 bitonic sort instead of torch.sort
+    sort: bool = False      # K9 radix sort instead of torch.sort
     gather: bool = False    # K10 word rows + K11
     affine: bool = False    # K10 affine rows + K12; gather takes precedence
 
@@ -352,7 +352,9 @@ bucket_fold.launches = 0
 # ------------------------------------------------------------ the pipeline
 def pack_keys(digits: torch.Tensor):
     """(n, nw) int32 signed digits -> (keys (nw, n) int64, index bits
-    `shift`): key = |digit| << (shift + 1) | sign << shift | index."""
+    `shift`): key = |digit| << (shift + 1) | sign << shift | index.  The
+    index is ascending along each row, so a stable sort by the (|digit|,
+    sign) bits alone (K9, sort_keys) orders the keys as a full sort does."""
     n = digits.shape[0]
     shift = max(n - 1, 1).bit_length()
     d = digits.T.to(torch.int64)
@@ -361,13 +363,15 @@ def pack_keys(digits: torch.Tensor):
     return keys.contiguous(), shift
 
 
-def sort_keys(digits: torch.Tensor, nb: int, bitonic: bool = False):
+def sort_keys(digits: torch.Tensor, nb: int, radix: bool = False):
     """(n, nw) int32 signed digits -> (sorted keys (nw, n) int64, run offsets
     (nw, nb + 1) int64, index bits).  Zero digits sort first and belong to
-    no bucket.  bitonic sorts with K9 instead of torch.sort."""
+    no bucket.  radix sorts with K9 instead of torch.sort, by the bits
+    above the index only: |digit| <= nb takes nb.bit_length() bits, over
+    the sign bit.  The result is the same tensor (pack_keys)."""
     nw = digits.shape[1]
     keys, shift = pack_keys(digits)
-    keys = (bitonic_sort(keys) if bitonic
+    keys = (radix_sort(keys, shift, shift + 1 + nb.bit_length()) if radix
             else torch.sort(keys, dim=1).values.contiguous())
     bounds = (torch.arange(1, nb + 2, device=digits.device) << (shift + 1))
     offsets = torch.searchsorted(keys, bounds.expand(nw, nb + 1).contiguous())

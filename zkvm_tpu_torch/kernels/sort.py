@@ -1,13 +1,18 @@
-"""K9 bitonic_sort: ascending per-row sort of the MSM's packed keys.
+"""K9 radix_sort: stable per-row sort of the MSM's packed keys by a range
+of their bits.
 
 Replaces the JAX package's pallas_msm.py::_bitonic_kernel (sort_rows_device),
 the stage that ZKVM_MSM_SORT=pallas selects there and MsmConfig.sort here
-(kernels/msm.py).  The CUDA kernel is csrc/bitonic_sort.cu;
-bitonic_sort_plain is the same network in PyTorch ops.  Rows pad to the
-next power of two with INT64_MAX, which sorts to the tail and is sliced
-off, as sort_rows_device pads with INT32_MAX.  The MSM's keys are unique
-(their low bits are the point index), so any correct sort gives the same
-tensor as torch.sort.
+(kernels/msm.py).  The CUDA kernel is csrc/radix_sort.cu, a least-
+significant-digit radix sort in passes of at most 8 bits; radix_sort_plain
+is the same passes in PyTorch ops.  Rows of any length are sorted as
+they are; nothing pads them to a power of two.
+
+With lo_bit = 0 and hi_bit = 63 it is a full sort of nonnegative int64
+keys, as sort_rows_device is of its int32 keys.  The MSM passes only the
+(|digit|, sign) field of its keys (msm.sort_keys): their low bits are the
+point index, already ascending along each row, so the stable sort of the
+field alone gives the same tensor as torch.sort of the whole keys.
 """
 
 from __future__ import annotations
@@ -16,52 +21,55 @@ import torch
 
 from . import _build
 
-INT64_MAX = (1 << 63) - 1
+TILE = 2048           # keys of a row per block of the histogram and scatter
+PASS_BITS = 8         # the most bits a pass sorts by
 
 
-def _padded(keys: torch.Tensor) -> torch.Tensor:
-    """keys in the first n columns of (R, 2^ceil(log2 n)), INT64_MAX after."""
-    R, n = keys.shape
-    buf = torch.full((R, 1 << max(n - 1, 1).bit_length()), INT64_MAX,
-                     dtype=torch.int64, device=keys.device)
-    buf[:, :n] = keys
-    return buf
+def passes(lo_bit: int, hi_bit: int) -> list[tuple[int, int]]:
+    """(shift, bits) of each pass, lowest first: the bits [lo_bit, hi_bit)
+    split into ceil(n / 8) passes of equal width (the last may be
+    narrower), as csrc/radix_sort.cu splits them."""
+    bits = hi_bit - lo_bit
+    if bits <= 0:
+        return []
+    k = -(-bits // PASS_BITS)
+    per = -(-bits // k)
+    return [(lo_bit + p * per, min(per, bits - p * per)) for p in range(k)]
 
 
-def bitonic_sort_plain(keys: torch.Tensor) -> torch.Tensor:
-    """The kernel's network in torch ops: every (size, stride) stage is one
-    vectorized compare-exchange of the pairs (i, i + stride), ascending
-    where (i & size) == 0."""
-    R, n = keys.shape
-    x = _padded(keys)
-    npad = x.shape[1]
-    size = 2
-    while size <= npad:
-        stride = size // 2
-        while stride >= 1:
-            v = x.view(R, npad // (2 * stride), 2, stride)
-            lo, hi = v[:, :, 0], v[:, :, 1]
-            first = torch.arange(npad // (2 * stride), device=x.device) * (
-                2 * stride)
-            asc = ((first & size) == 0).view(1, -1, 1)
-            mn, mx = torch.minimum(lo, hi), torch.maximum(lo, hi)
-            x = torch.stack([torch.where(asc, mn, mx), torch.where(asc, mx, mn)],
-                            dim=2).view(R, npad)
-            stride //= 2
-        size *= 2
-    return x[:, :n].contiguous()
+def radix_sort_plain(keys: torch.Tensor, lo_bit: int = 0,
+                     hi_bit: int = 63) -> torch.Tensor:
+    """The kernel's passes in torch ops: per pass, the digit's stable
+    argsort along each row, then the keys in that order."""
+    x = keys.clone()
+    for shift, bits in passes(lo_bit, hi_bit):
+        digit = (x >> shift) & ((1 << bits) - 1)
+        x = x.gather(1, torch.argsort(digit, dim=1, stable=True))
+    return x
 
 
-def bitonic_sort(keys: torch.Tensor) -> torch.Tensor:
-    """(R, n) int64 -> each row sorted ascending, (R, n) int64."""
+def radix_sort(keys: torch.Tensor, lo_bit: int = 0,
+               hi_bit: int = 63) -> torch.Tensor:
+    """(R, n) nonnegative int64 -> each row sorted ascending and stably by
+    bits [lo_bit, hi_bit) of its keys, (R, n) int64; keys is not written."""
+    if not 0 <= lo_bit <= hi_bit <= 63:
+        raise ValueError(f"radix_sort: bits [{lo_bit}, {hi_bit}) not within "
+                         "[0, 63)")
     if keys.device.type == "cpu":
-        return bitonic_sort_plain(keys)
-    _build.check_cuda(keys, torch.int64, (None, None), "bitonic_sort keys")
+        return radix_sort_plain(keys, lo_bit, hi_bit)
+    _build.check_cuda(keys, torch.int64, (None, None), "radix_sort keys")
     R, n = keys.shape
-    buf = _padded(keys)
-    _build.launch("bitonic_sort", buf, R, buf.shape[1])
-    bitonic_sort.launches += 1
-    return buf[:, :n].contiguous()
+    if R > 65535:
+        raise ValueError(f"radix_sort: {R} rows, at most 65,535")
+    out = torch.empty_like(keys)
+    tmp = torch.empty_like(keys)
+    tiles = -(-n // TILE)
+    hist = torch.empty((R, 1 << PASS_BITS, max(tiles, 1)), dtype=torch.int32,
+                       device=keys.device)
+    _build.launch("radix_sort", keys, out, tmp, hist, R, n, TILE, lo_bit,
+                  hi_bit)
+    radix_sort.launches += 1
+    return out
 
 
-bitonic_sort.launches = 0
+radix_sort.launches = 0

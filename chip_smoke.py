@@ -11,15 +11,20 @@
 2. holds K1-K4 against their plain PyTorch versions on the card at the
    range-proof path's shapes (nb = 1024 proofs of 64 bits, m = 1), words
    and flags exactly equal, and times both (CUDA events and the
-   profiler's device time); K4's verdict and folded point (also in
-   canonical words) on the batch's totals, which sum to the identity, and
-   on those of the same MSM with one digit raised by one, which sum to
-   that digit's point;
-3. holds K9 and K10 against their plain versions on the key rows of the
+   profiler's device time); K2 also on the same points with every scalar
+   equal (one run of all the points per window), whose time must stay
+   within 3x the random-digit time; K4's verdict and folded point (also
+   in canonical words) on the batch's totals, which sum to the identity,
+   and on those of the same MSM with one digit raised by one, which sum
+   to that digit's point; K3 also at nb = 1 to 64; then the device half's
+   stages, and window_totals at the widths around msm.best_wbits's choice
+   (11 on this route), the minimum and median of several timings;
+3. holds K2 and K3 against their plain versions on the nb = 4096 batch's
+   MSM, with the same width sweep; K9 and K10 on the key rows of the
    nb = 1024 and nb = 4096 batches' MSMs (K9 sorting the (|digit|, sign)
    bits, equal also to torch.sort), K9 at full width on random 63-bit
    keys of the nb = 4096 shape, and K11 and K12 on the nb = 1024 MSM (K11
-   also word for word against K2, K12 as points), and times them beside
+   also against K2 as points, K12 as points), and times them beside
    torch.sort (K9) and torch indexing (K10);
 4. with every launch count set to 0, runs the range-proof path through its
    entry point zkvm_tpu_torch.proofs.rangeproof.batch_verify at nb = 1024
@@ -52,7 +57,8 @@
    changed and one with an encoding swapped for another point's; a
    non-canonical encoding must raise on the host decode; one aggregated
    m = 32 proof through verify_multiple (accepted, its t_x + 1 copy
-   rejected); TorchEngine.msm on 4,096 points, checked by msm_is_identity;
+   rejected); TorchEngine.msm on 4,096 points, checked by msm_is_identity,
+   then window_totals by width on those points;
 10. prints the kernels line (every launch count must be > 0) and, last,
    the device line.
 
@@ -280,41 +286,102 @@ def main():
                               wbits)
     dyn_pts, _ = decompress.ristretto_decode(to_device(dyn, dev))
     points = torch.cat([words_to_points(static), dyn_pts], dim=2)
-    keys, offsets, shift = msm.sort_keys(digits, nbk)
     nw = digits.shape[1]
-    buckets_k = msm.bucket_accumulate(keys, offsets, points, nbk, shift)
-    buckets_p = msm.bucket_accumulate_plain(keys, offsets, points, nbk, shift)
-    torch.cuda.synchronize()
-    bw_k, bw_p = points_to_words(buckets_k), points_to_words(buckets_p)
-    require(torch.equal(bw_k, bw_p), "K2 buckets differ from the plain version")
-    runs = offsets[:, 1:] - offsets[:, :-1]
-    k2_adds = int((runs - 1).clamp(min=0).sum())
-    results["K2"] = dict(
-        err=max_abs_err(bw_k, bw_p),
-        ms=cuda_ms(lambda: msm.bucket_accumulate(keys, offsets, points, nbk,
-                                                 shift), 20),
-        plain_ms=cuda_ms(lambda: msm.bucket_accumulate_plain(
-            keys, offsets, points, nbk, shift), 2),
-        bound=bound_ms(keys.numel() * 8 + offsets.numel() * 8
-                       + points.numel() * 4 + buckets_k.numel() * 4,
-                       k2_adds * ADD))
 
+    def k2_k3(tag, pts, dg, w):
+        """K2 and K3 on one MSM, bit for bit against their plain versions;
+        returns (K2's results, K3's results, keys, offsets, shift, K2's
+        bucket sums)."""
+        nbw = 1 << (w - 1)
+        nww = dg.shape[1]
+        keys, offsets, shift = msm.sort_keys(dg, nbw)
+        b_k = msm.bucket_accumulate(keys, offsets, pts, nbw, shift)
+        b_p = msm.bucket_accumulate_plain(keys, offsets, pts, nbw, shift)
+        torch.cuda.synchronize()
+        bw_k, bw_p = points_to_words(b_k), points_to_words(b_p)
+        require(torch.equal(b_k, b_p) and torch.equal(bw_k, bw_p),
+                f"K2 buckets differ from the plain version ({tag})")
+        runs = offsets[:, 1:] - offsets[:, :-1]
+        adds = int((runs - 1).clamp(min=0).sum())
+        levels = len(msm.accumulate_levels(pts.shape[2]))    # + cached_points
+        k2 = dict(
+            err=max_abs_err(bw_k, bw_p),
+            ms=cuda_ms(lambda: msm.bucket_accumulate(keys, offsets, pts, nbw,
+                                                     shift), 20),
+            dev_ms=device_ms(lambda: msm.bucket_accumulate(
+                keys, offsets, pts, nbw, shift),
+                {"bucket_accumulate_kernel": levels,
+                 "cached_points_kernel": 1}, 20),
+            plain_ms=cuda_ms(lambda: msm.bucket_accumulate_plain(
+                keys, offsets, pts, nbw, shift), 2),
+            bound=bound_ms(keys.numel() * 8 + offsets.numel() * 8
+                           + pts.numel() * 4 + b_k.numel() * 4, adds * ADD),
+            per_call=levels + 1, adds=adds)
+        t_k = msm.bucket_fold(b_k, nww, nbw)
+        t_p = msm.bucket_fold_plain(b_k, nww, nbw)
+        torch.cuda.synchronize()
+        tw_k, tw_p = points_to_words(t_k), points_to_words(t_p)
+        require(torch.equal(t_k, t_p) and torch.equal(tw_k, tw_p),
+                f"K3 totals differ from the plain version ({tag})")
+        # the work the first fold design did (128 lanes of R buckets a
+        # window, a suffix scan, a tree and log2 R doublings), kept as the
+        # bound's count so that rows compare across designs
+        lanes = min(128, nbw)
+        r = nbw // lanes
+        adds3 = nww * (2 * nbw + sum(lanes - (1 << k)
+                                     for k in range(int(math.log2(lanes))))
+                       + 2 * (lanes - 1) + 1)
+        k3 = dict(
+            err=max_abs_err(tw_k, tw_p),
+            ms=cuda_ms(lambda: msm.bucket_fold(b_k, nww, nbw), 20),
+            dev_ms=device_ms(lambda: msm.bucket_fold(b_k, nww, nbw),
+                             {"bucket_fold_block_kernel": 1,
+                              "bucket_fold_window_kernel": 1}, 20),
+            plain_ms=cuda_ms(lambda: msm.bucket_fold_plain(b_k, nww, nbw), 2),
+            bound=bound_ms(b_k.numel() * 4 + t_k.numel() * 4,
+                           adds3 * ADD + nww * int(math.log2(r)) * DBL),
+            per_call=2)
+        for k, v in (("K2", k2), ("K3", k3)):
+            print(f"{k} {tag} ({pts.shape[2]} points, w = {w}): "
+                  f"kernel_ms={v['ms']:.4f} "
+                  f"device_only_ms={fmt_ms(v['dev_ms'])} "
+                  f"plain_ms={v['plain_ms']:.2f} "
+                  f"bound_ms={v['bound'][0]:.7f} ({v['bound'][1]}) "
+                  f"kernel_launches_per_call={v['per_call']} "
+                  f"max_abs_err={v['err']} [{smi}]", flush=True)
+        return k2, k3, keys, offsets, shift, b_k
+
+    results["K2"], results["K3"], keys, offsets, shift, buckets_k = k2_k3(
+        "nb=1024", points, digits, wbits)
+    runs = offsets[:, 1:] - offsets[:, :-1]
+    k2_adds = results["K2"]["adds"]
     totals_k = msm.bucket_fold(buckets_k, nw, nbk)
-    totals_p = msm.bucket_fold_plain(buckets_k, nw, nbk)
-    torch.cuda.synchronize()
-    tw_k, tw_p = points_to_words(totals_k), points_to_words(totals_p)
-    require(torch.equal(tw_k, tw_p), "K3 totals differ from the plain version")
-    lanes = msm.fold_lanes(nbk)
-    r = nbk // lanes
-    k3_adds = nw * (2 * nbk + sum(lanes - (1 << j)
-                                  for j in range(int(math.log2(lanes))))
-                    + 2 * (lanes - 1) + 1)
-    results["K3"] = dict(
-        err=max_abs_err(tw_k, tw_p),
-        ms=cuda_ms(lambda: msm.bucket_fold(buckets_k, nw, nbk), 20),
-        plain_ms=cuda_ms(lambda: msm.bucket_fold_plain(buckets_k, nw, nbk), 2),
-        bound=bound_ms(buckets_k.numel() * 4 + totals_k.numel() * 4,
-                       k3_adds * ADD + nw * int(math.log2(r)) * DBL))
+
+    # K3 at the narrow windows a caller may ask for (wbits 1 to 7), where a
+    # first-pass block holds fewer groups than a warp: bucket sums taken
+    # from the nb = 1024 ones
+    for nbs in (1, 2, 4, 16, 32, 64):
+        b_s = buckets_k[:, :, :nw * nbs].contiguous()
+        t_k, t_p = msm.bucket_fold(b_s, nw, nbs), msm.bucket_fold_plain(
+            b_s, nw, nbs)
+        torch.cuda.synchronize()
+        require(torch.equal(t_k, t_p)
+                and torch.equal(points_to_words(t_k), points_to_words(t_p)),
+                f"K3 totals differ from the plain version at nb = {nbs}")
+    print(f"K3 at nb = 1, 2, 4, 16, 32, 64 ({nw} windows): equal to the "
+          f"plain version bit for bit [{smi}]", flush=True)
+
+    # K2 on the same points with every scalar equal: each window's digits
+    # form one run of all the points (the skew the first K2 serialised)
+    row = int(np.random.default_rng(2028).integers(0, total))
+    digits_eq = digits[row:row + 1].expand(total, nw).contiguous()
+    k2_eq, _, *_ = k2_k3("nb=1024 equal scalars", points, digits_eq, wbits)
+    print(f"K2 skew: equal scalars {k2_eq['ms']:.4f} ms "
+          f"(device-only {fmt_ms(k2_eq['dev_ms'])}) against random "
+          f"{results['K2']['ms']:.4f} ({fmt_ms(results['K2']['dev_ms'])}): "
+          f"{k2_eq['ms'] / results['K2']['ms']:.3f}x [{smi}]", flush=True)
+    require(k2_eq["ms"] <= 3 * results["K2"]["ms"],
+            "K2 on equal scalars takes more than 3x its random-digit time")
 
     # K4 on the batch's totals (identity) and on those of the same MSM with
     # one digit raised by one, whose sum is that digit's point
@@ -357,11 +424,6 @@ def main():
     k4_muls = (nw - 1) * (8 * wbits + 9)            # one thread's, in a row
     k1_4 = {"K1": (lambda: decompress.ristretto_decode(words),
                    "ristretto_decode_kernel"),
-            "K2": (lambda: msm.bucket_accumulate(keys, offsets, points, nbk,
-                                                 shift),
-                   "bucket_accumulate_kernel"),
-            "K3": (lambda: msm.bucket_fold(buckets_k, nw, nbk),
-                   "bucket_fold_kernel"),
             "K4": (lambda: combine.horner_check(totals4, wbits),
                    "horner_check_kernel")}
     for k, (fn, kname) in k1_4.items():
@@ -381,7 +443,7 @@ def main():
           f"device-only [{smi}]", flush=True)
 
     # stages of the device half at this shape, and window widths around
-    # the cost model's choice (sort + K2 + K3 per width)
+    # msm.best_wbits's choice (sort + K2 + K3 per width)
     stages = {
         "synthesis+recode": lambda: sm.signed_digits(
             bvd.batch_msm_scalars(params_t, bbB_t, n, m, lg), wbits),
@@ -395,12 +457,39 @@ def main():
     }
     print("device half stages (ms): " + json.dumps(
         {k: round(cuda_ms(f, 5), 4) for k, f in stages.items()}), flush=True)
-    sweep = {}
-    for w in range(max(8, wbits - 2), min(16, wbits + 2) + 1):
-        dw = sm.signed_digits(bvd.batch_msm_scalars(params_t, bbB_t, n, m, lg), w)
-        sweep[w] = round(cuda_ms(lambda: msm.window_totals(points, dw, w), 5), 4)
-    print(f"window_totals ms by wbits (model picks {wbits}): "
-          + json.dumps(sweep), flush=True)
+
+    def width_sweep(tag, pts, scalars, chosen):
+        """window_totals (sort, K2, K3) at the widths around msm.best_wbits's
+        choice and at 11: the minimum and median of 7 timings of 3 calls
+        each, the widths taken in turn, and each stage's time by width."""
+        widths = sorted(set(range(max(8, chosen - 2), min(16, chosen + 2) + 1))
+                        | {11})
+        dws = {w: sm.signed_digits(scalars, w) for w in widths}
+        samples = {w: [] for w in widths}
+        for _ in range(7):
+            for w in widths:
+                samples[w].append(cuda_ms(
+                    lambda: msm.window_totals(pts, dws[w], w), 3))
+        sweep = {w: (min(v), float(np.median(v))) for w, v in samples.items()}
+        parts = {}
+        for w in widths:
+            dw, nbw = dws[w], 1 << (w - 1)
+            kw, ow, sw = msm.sort_keys(dw, nbw)
+            bw = msm.bucket_accumulate(kw, ow, pts, nbw, sw)
+            parts[w] = [round(cuda_ms(f, 5), 4) for f in (
+                lambda: msm.sort_keys(dw, nbw),
+                lambda: msm.bucket_accumulate(kw, ow, pts, nbw, sw),
+                lambda: msm.bucket_fold(bw, dw.shape[1], nbw))]
+        print(f"window_totals ms by wbits {tag} (min, median; best_wbits "
+              f"picks {chosen}): " + json.dumps(
+                  {w: [round(a, 4), round(m, 4)] for w, (a, m) in sweep.items()})
+              + f"; the choice's median against 11's: "
+              f"{sweep[chosen][1] / sweep[11][1]:.3f}x"
+              + "; sort, K2, K3 ms by wbits: " + json.dumps(parts)
+              + f" [{smi}]", flush=True)
+
+    width_sweep("nb=1024", points,
+                bvd.batch_msm_scalars(params_t, bbB_t, n, m, lg), wbits)
 
     # ------------------------------------------------- phase 3: K9-K12
     t = time.perf_counter()
@@ -416,6 +505,9 @@ def main():
         bvd.batch_msm_scalars(params4_t, bbB4_t, n, m, lg4), wbits4)
     points4 = torch.cat([words_to_points(static),
                          decompress.ristretto_decode(words4)[0]], dim=2)
+    k2_4, k3_4, *_ = k2_k3("nb=4096", points4, digits4, wbits4)
+    width_sweep("nb=4096", points4,
+                bvd.batch_msm_scalars(params4_t, bbB4_t, n, m, lg4), wbits4)
 
     rs_keys = np.random.default_rng(2027)
 
@@ -490,7 +582,7 @@ def main():
     w11, w11_p = points_to_words(b11), points_to_words(b11_p)
     w12, w12_p = points_to_words(b12), points_to_words(b12_p)
     require(torch.equal(w11, w11_p), "K11 differs from its plain version")
-    require(torch.equal(w11, bw_k), "K11's bucket sums differ from K2's")
+    require(same_points(b11, buckets_k), "K11's bucket sums differ from K2's")
     require(torch.equal(w12, w12_p), "K12 differs from its plain version")
     require(same_points(b12, buckets_k), "K12's bucket sums differ from K2's")
     loads = int(runs.sum())
@@ -697,8 +789,7 @@ def main():
         configuration of window_totals and of the whole device half."""
         tot = {c: msm.window_totals(pts, dg, w, cfg)
                for c, cfg in configs.items()}
-        require(torch.equal(points_to_words(tot["gather+sort"]),
-                            points_to_words(tot["default"])),
+        require(same_points(tot["gather+sort"], tot["default"]),
                 f"{tag}: gather + sort totals differ from the default's")
         require(same_points(tot["affine"], tot["default"]),
                 f"{tag}: affine totals differ from the default's")
@@ -903,8 +994,7 @@ def main():
               f"{split['pack_s']:.4f} s, device {dev_s:.4f} s), "
               f"t_x and swapped encoding rejected [{smi}]", flush=True)
     os.environ.update(saved)
-    require(torch.equal(points_to_words(m_totals["gather+sort"]),
-                        points_to_words(m_totals["default"]))
+    require(same_points(m_totals["gather+sort"], m_totals["default"])
             and same_points(m_totals["affine"], m_totals["default"]),
             "the mixed MSM's totals differ between configurations")
     print("configs mixed batch (24322 points): totals equal", flush=True)
@@ -943,6 +1033,10 @@ def main():
             f"the engine path skipped a kernel: {engine_path}")
     print(f"engine (mixed/aggregated) path launches: {engine_path}",
           flush=True)
+    e_pw, e_sw = (to_device(a, dev) for a in pack_words([p.ep for p in e_pts],
+                                                        e_ks))
+    width_sweep("engine n=4096", words_to_points(e_pw),
+                sm.decode_words_first(e_sw), msm.best_wbits(4096))
     print("mixed batch window_totals ms by configuration (from words): "
           + json.dumps({c: round(cuda_ms(lambda: window_totals_from_words(
               pw_t, sw_t, m_w, cfg), 3), 4) for c, cfg in configs.items()})

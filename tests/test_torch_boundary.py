@@ -111,6 +111,8 @@ def test_kernel_wrappers_refuse_non_cuda_devices():
     keys = torch.empty((2, 64), dtype=torch.int64, device="meta")
     offsets = torch.empty((2, 129), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
+        msm.bucket_accumulate(keys, offsets, pts, 128, 6)
+    with pytest.raises(ValueError, match="CUDA"):
         sort.radix_sort(keys)
     with pytest.raises(ValueError, match="CUDA"):
         gather.gather_words(torch.empty((64, 32), dtype=torch.int32,

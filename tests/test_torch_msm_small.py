@@ -76,3 +76,5 @@ def test_dispatch_at_2048_points(monkeypatch):
         "small", "small", "small", "large", "large"]
     assert msm.best_wbits(1055) == msm.best_wbits(2048) == 8
     assert msm.best_wbits(2049) == msm.best_wbits(66091) == 11
+    assert [msm.best_wbits(n) for n in (4156, 17538, 24322, 69762, 387494,
+                                        4716319)] == [11, 11, 11, 11, 15, 16]

@@ -19,8 +19,8 @@ from zkvm_tpu_torch.kernels import msm
 from zkvm_tpu_torch.kernels import scalarmod as sm
 from zkvm_tpu_torch.kernels.engine import TorchEngine
 from zkvm_tpu_torch.kernels.frontend import combine_window_totals
-from zkvm_tpu_torch.kernels.words import (points_to_words, points_words,
-                                          to_device, words_to_points)
+from zkvm_tpu_torch.kernels.words import (points_words, to_device,
+                                          words_to_points)
 from zkvm_tpu_torch.oracle.ristretto import RistrettoPoint
 
 # the suite runs in several worker processes and these tensors are small:
@@ -73,17 +73,14 @@ def _default_totals():
     ids=["sort+gather", "affine"])
 def test_window_totals_configs_match_k2_and_oracle(config):
     """Through TorchEngine("cpu", wbits, config): K9 + K10 + K11's twins
-    give the default pipeline's (K2's) window totals word for word; K10 +
-    K12's the same points in other coordinates; both combine to the JAX
-    package's host MSM.  (The default is held against the oracle in
+    and K10 + K12's give the default pipeline's (K2's) window totals as
+    points (K11 walks each bucket's run, K2 adds chunks of the sorted
+    records, so their limbs differ); both combine to the JAX package's
+    host MSM.  (The default is held against the oracle in
     test_torch_msm.py.)"""
     pts, ks, want = _case()
     totals, wbits = TorchEngine("cpu", WBITS, config).window_totals(
         ks, [RistrettoPoint(p) for p in pts])
     assert wbits == WBITS
-    if config.gather:
-        assert torch.equal(points_to_words(totals),
-                           points_to_words(_default_totals()))
-    else:
-        assert _same_points(totals, _default_totals())
+    assert _same_points(totals, _default_totals())
     assert _same_point(combine_window_totals(totals, WBITS), want)

@@ -1,10 +1,11 @@
 """Builds the CUDA kernels at first use and binds them with ctypes.
 
-Each kernel's source (csrc/<name>.cu, which includes csrc/field25519.cuh)
-compiles with its own nvcc process into a shared library with a plain C
-interface; build_all starts them all together.  Sources include no
-PyTorch header, so a build takes seconds, not the minutes a
-torch.utils.cpp_extension build of the same code takes.  Libraries land
+Each kernel's source (csrc/<name>.cu, which includes csrc/field25519.cuh
+and, for the lane-parallel kernels, csrc/lanes.cuh) compiles with its own
+nvcc process into a shared library with a plain C interface; build_all
+starts them all together.  Sources include no PyTorch header, so a build
+takes seconds, not the minutes a torch.utils.cpp_extension build of the
+same code takes.  Libraries land
 in kernels/build/ (ignored by git), named by a hash of their sources and
 flags, so an edited source is rebuilt and a built one is reused.
 
@@ -27,7 +28,6 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-HEADER = CSRC / "field25519.cuh"
 FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -38,8 +38,8 @@ _L = ctypes.c_int64
 SIGNATURES = {
     "decompress": ("zkvm_ristretto_decode", [_P, _P, _P, _L, _P]),
     "bucket_accumulate": ("zkvm_bucket_accumulate",
-                          [_P, _P, _P, _P, _L, _I, _I, _I, _P]),
-    "bucket_fold": ("zkvm_bucket_fold", [_P, _P, _I, _I, _I, _I, _P]),
+                          [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P]),
+    "bucket_fold": ("zkvm_bucket_fold", [_P, _P, _P, _I, _I, _P]),
     "horner_check": ("zkvm_horner_check", [_P, _P, _P, _I, _I, _I, _P]),
     "seg_combine": ("zkvm_seg_combine", [_P, _P, _P, _P, _L, _P]),
     "point_add": ("zkvm_point_add", [_P, _P, _P, _L, _P]),
@@ -69,7 +69,7 @@ def nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for part in (CSRC / f"{name}.cu", HEADER):
+    for part in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(part.read_bytes())
     h.update(" ".join(FLAGS).encode())
     return BUILD_DIR / f"libzkvm_{name}_{h.hexdigest()[:16]}.so"

@@ -29,7 +29,9 @@
 // thread's eight or nine: (nw - 1) (2 wbits + 2) levels, 552 at nw = 24,
 // w = 11.  Operands cross lanes by __shfl_sync within each group of four;
 // the warp's eight groups all run the check (no lane diverges) and group 0
-// writes.  fe_mul and fe_sq are field25519.cuh's, so its limb audit holds.
+// writes.  The lane helpers (lane_dbl, lane_add) are lanes.cuh's, shared
+// with K2 and K3; fe_mul and fe_sq are field25519.cuh's, so its limb audit
+// holds.
 //
 // Input (4, 10, C * nw) int32 window totals, check c's window w at lane
 // c * nw + w; output the folded points (4, 10, C) int32 and the verdicts
@@ -38,63 +40,11 @@
 #include <stdint.h>
 
 #include "field25519.cuh"
+#include "lanes.cuh"
 
 using namespace zk;
 
 namespace {
-
-// coordinate `src` of the point held across the caller's group of four
-__device__ __forceinline__ Fe shfl_fe(const Fe& f, int src) {
-    Fe r;
-#pragma unroll
-    for (int i = 0; i < 10; i++) r.v[i] = __shfl_sync(0xffffffffu, f.v[i], src, 4);
-    return r;
-}
-
-// a0, a1, a2 or a3 by the lane's coordinate j, limb by limb (selects, so
-// that no operand leaves the registers)
-__device__ __forceinline__ Fe sel4(int j, const Fe& a0, const Fe& a1,
-                                   const Fe& a2, const Fe& a3) {
-    Fe r;
-#pragma unroll
-    for (int i = 0; i < 10; i++)
-        r.v[i] = j == 0 ? a0.v[i] : j == 1 ? a1.v[i] : j == 2 ? a2.v[i] : a3.v[i];
-    return r;
-}
-
-// Lane j's output coordinate from E, F, G, H held on every lane:
-// X = E F, Y = G H, Z = F G, T = E H.
-__device__ __forceinline__ Fe finish(int j, const Fe& E, const Fe& F,
-                                     const Fe& G, const Fe& H) {
-    return fe_mul(sel4(j, E, G, F, E), sel4(j, F, H, G, H));
-}
-
-// one doubling; lane j holds coordinate j of the point before and after
-__device__ __forceinline__ Fe lane_dbl(int j, const Fe& mine) {
-    const Fe x = shfl_fe(mine, 0), y = shfl_fe(mine, 1);
-    const Fe xy = fe_add(x, y);
-    const Fe s = fe_sq(sel4(j, mine, mine, mine, xy));  // A, B, Zz, (X+Y)^2
-    const Fe A = shfl_fe(s, 0), B = shfl_fe(s, 1);
-    const Fe Zz = shfl_fe(s, 2), S = shfl_fe(s, 3);
-    const Fe C = fe_add(Zz, Zz);
-    const Fe E = fe_sub(fe_sub(S, A), B);
-    const Fe G = fe_sub(B, A);
-    const Fe F = fe_sub(G, C);
-    const Fe H = fe_sub(fe_neg(A), B);
-    return finish(j, E, F, G, H);
-}
-
-// acc + q with q's cached coordinate j in `cached`
-__device__ __forceinline__ Fe lane_add(int j, const Fe& mine,
-                                       const Fe& cached) {
-    const Fe X = shfl_fe(mine, 0), Y = shfl_fe(mine, 1);
-    const Fe Z = shfl_fe(mine, 2), T = shfl_fe(mine, 3);
-    const Fe ym = fe_sub(Y, X), yp = fe_add(Y, X);
-    const Fe v = fe_mul(sel4(j, ym, yp, T, Z), cached);   // A, B, C, D
-    const Fe A = shfl_fe(v, 0), B = shfl_fe(v, 1);
-    const Fe C = shfl_fe(v, 2), D = shfl_fe(v, 3);
-    return finish(j, fe_sub(B, A), fe_sub(D, C), fe_add(D, C), fe_add(B, A));
-}
 
 __global__ void horner_check_kernel(const int32_t* __restrict__ totals,
                                     int32_t* __restrict__ folded,

@@ -35,11 +35,10 @@ OFFS = (0, 26, 51, 77, 102, 128, 153, 179, 204, 230)
 NL = 10
 
 _W_COL = torch.tensor(W, dtype=torch.int64)
-_IDX = torch.tensor([[(k - i) % NL for k in range(NL)] for i in range(NL)])
-# coefficient of f_i * g_j in column k = (i + j) mod 10: x19 on wrap,
-# x2 when both limbs are odd (their weights sum to one bit above the column)
-_COEF = torch.tensor([[(19 if k < i else 1) * (2 if i % 2 and (k - i) % 2 else 1)
-                       for k in range(NL)] for i in range(NL)], dtype=torch.int64)
+_HALF = torch.tensor([1 << (w - 1) for w in W], dtype=torch.int64)
+# the factor of g_j when f_i has an odd i: f_i g_j lands in column
+# (i + j) mod 10 one bit high when both limbs are odd (x19 on wrap)
+_ODD = torch.tensor([2 if i % 2 else 1 for i in range(NL)], dtype=torch.int64)
 
 
 def _col(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -51,7 +50,7 @@ def carry_pass(h: torch.Tensor) -> torch.Tensor:
     """One parallel rounding carry pass: c_i = round(h_i / 2^W[i]) moves to
     limb i+1 (limb 9's carry wraps into limb 0 times 19)."""
     w = _col(_W_COL, h)
-    c = (h + (torch.ones_like(h) << (w - 1))) >> w
+    c = (h + _col(_HALF, h)) >> w
     h = h - (c << w)
     return h + torch.cat([19 * c[-1:], c[:-1]])
 
@@ -61,10 +60,17 @@ def carry(h: torch.Tensor) -> torch.Tensor:
 
 
 def mul(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Column k = Σ_i f_i g_(k-i) (× 19 where k - i wraps, × 2 where i and
+    k - i are both odd), from views of [19 g, g] and of the same with g's
+    odd limbs doubled: rows 10 - i .. 19 - i are g_(k-i) for k = 0..9."""
     f, g = torch.broadcast_tensors(f, g)
-    gm = g[_IDX.to(g.device)] * _COEF.to(g.device).view(
-        (NL, NL) + (1,) * (g.dim() - 1))                 # (i, k, ...)
-    return carry((f.unsqueeze(1) * gm).sum(0))
+    odd = _col(_ODD, g)
+    ext = torch.cat([19 * g, g])
+    ext_odd = torch.cat([19 * (g * odd), g * odd])
+    h = f[0] * ext[NL:]
+    for i in range(1, NL):
+        h = h + f[i] * (ext_odd if i % 2 else ext)[NL - i:2 * NL - i]
+    return carry(h)
 
 
 def sqr(f: torch.Tensor) -> torch.Tensor:

@@ -12,8 +12,22 @@ small route, larger ones the bucket pipeline.  Both start from one sort:
 
 window_totals_large, the bucket pipeline:
   2. K2 (csrc/bucket_accumulate.cu), or K11 or K12 (below): every bucket's
-     signed point sum;
-  3. K3 (csrc/bucket_fold.cu): each window's Σ_b b · B_b.
+     signed point sum.  K2 is load-balanced: a group of four lanes (one
+     point coordinate each, csrc/lanes.cuh) adds a fixed chunk of
+     ACCUMULATE_CHUNK sorted records, writes the runs that start and end
+     inside it, and passes the pieces of runs that cross its edges on as
+     a shorter sorted keyed sequence, which the same kernel reduces again
+     (accumulate_levels: 6 levels at 17,538 points).  Its records are
+     points in cached form, made once per point.  Its work does not
+     depend on how the digits fall: equal digits cost what random ones do;
+  3. K3 (csrc/bucket_fold.cu): each window's Σ_b b · B_b, in two
+     launches: blocks of FOLD_GROUPS four-lane groups over runs of
+     FOLD_GROUPS · FOLD_RUN buckets (nb / 256 blocks a window), then one
+     block per window over its blocks' sums (fold_shape).
+The twins (bucket_accumulate_plain, bucket_fold_plain) run the kernels'
+additions in the kernels' association, vectorized, so that the card's
+results equal theirs bit for bit; K11 and K12 keep the per-bucket walk
+(_bucket_walk), so their sums equal K2's as points.
 
 window_totals_small, the associative-scan route (JAX _bucket_totals):
   2. gather and sign the points in sorted order (torch ops);
@@ -59,47 +73,48 @@ import torch
 from ..constants import EDWARDS_D2
 from . import _build
 from . import field as F
+from .combine import add_cached, cached
 from .gather import gather_words
 from .pointwise import point_add, seg_combine
 from .scalarmod import num_windows
 from .sort import radix_sort
 from .words import field_words_to_limbs, limbs_to_field_words, points_to_words
 
-FOLD_LANES = 128      # K3 threads per window (the block size)
+# K2 records per worker (a group of four lanes) on its first level and on
+# the later ones: the kernel's kChunk and kChunk1, which it is compiled with
+ACCUMULATE_CHUNK = 32
+ACCUMULATE_CHUNK1 = 8
+FOLD_RUN = 8           # K3 buckets per group in its first pass
+FOLD_GROUPS = 32       # K3 groups of four lanes per block
 SMALL_MSM_MAX = 2048  # the largest MSM on the small route
 
-# Cost model for choosing wbits on an H100 (132 SMs); the unit is one
-# point add on one thread, and at ~512 resident threads per SM a launch of
-# t threads takes ceil(t / 67,584) waves.
+# Choosing wbits on an H100.  The large route takes its width from a
+# table: 11 up to 387,493 points.  chip_smoke.py's width sweep prints
+# window_totals by width around 11 (the minimum and median of several
+# timings) on the default configuration at 4,096, 17,538 and 69,762
+# points; K2 and K3 do work there that does not depend on how the digits
+# fall, and the widths 9 to 13 lie within a few per cent of each other.
+# 11 also suits K11 and K12, which still give each bucket one thread: at
+# 12 or 14 the top window holds no scalar bits and receives the carry out
+# of the window below, putting half the points in bucket 1, one thread's
+# serial work (over 17,538 points window_totals took 1.5 ms at w = 11
+# against 66 ms at w = 12 with such an accumulator, on an H100 SXM at
+# 700 W).  Above 387,493 points the table keeps the choices of the first
+# design's cost model (15, then 16 from 4,716,319 points), which are not
+# measured on the card.
 #
-# The large route: K2 runs one thread per (window, bucket), and a warp
-# waits for the longest run among its 32 buckets, about λ + 2.5 sqrt(λ)
-# adds for Poisson runs of mean λ = n / nb.  The top windows are not
-# uniform: scalars are canonical and below 2^252 (but for a 2^-127
-# share), so window j holds only b_j = 252 - w j of its w bits, its digits
-# fall in about 2^b_j buckets and its longest run is about n / 2^b_j — and
-# a window holding no bits receives the carry out of a full window below,
-# putting half the points in bucket 1.  That run is one thread's serial
-# work: on an H100 SXM at 700 W, window_totals over 17,538 points took
-# 1.5 ms at w = 11 against 66 ms at w = 12, where the top window is such a
-# carry window.  K3 then walks 2R adds per thread, plus a scan and a tree
-# of log2(lanes) adds each and log2(R) doublings.  From 13, the JAX
-# package's width at these sizes, the model moves to 11 for every batch
-# size up to 2^18 points.
-#
-# The small route: at most ceil(log2 n) scan launches of nw * n threads
-# (the scan stops at the longest bucket run), then 2 log2(nb) fold
-# launches of at most nw * nb threads, each launch one add deep.  Digit
-# skew costs nothing here.  Every launch is at least one wave, so the
-# narrowest window the search allows (8) wins at every small n; the JAX
-# package's 13 would fold 4,096 buckets per window.
+# The small route's unit is one launch-wave of point additions: at most
+# ceil(log2 n) scan launches of nw * n threads (the scan stops at the
+# longest bucket run), then 2 log2(nb) fold launches of at most nw * nb
+# threads, each launch one add deep; at ~512 resident threads per SM a
+# launch of t threads takes ceil(t / 67,584) waves.  Digit skew costs
+# nothing there.  Every launch is at least one wave, so the narrowest
+# window the search allows (8) wins at every small n; the JAX package's
+# 13 would fold 4,096 buckets per window.
 _SMS = 132
 _RESIDENT_THREADS = 512
-_SCALAR_BITS = 252
-
-
-def fold_lanes(nb: int) -> int:
-    return min(FOLD_LANES, nb)
+_LARGE_WIDTHS = ((387_493, 11), (4_716_318, 15))   # (up to n points, wbits)
+_LARGE_WIDTH_ABOVE = 16
 
 
 def route(n: int) -> str:
@@ -111,28 +126,19 @@ def _waves(threads: int) -> int:
     return max(1, math.ceil(threads / (_SMS * _RESIDENT_THREADS)))
 
 
-def msm_cost(n: int, wbits: int) -> float:
+def small_msm_cost(n: int, wbits: int) -> float:
+    """The small route's cost in launch-waves (note above)."""
     nb = 1 << (wbits - 1)
     nw = num_windows(wbits)
-    if route(n) == "small":
-        return (math.ceil(math.log2(max(n, 2))) * _waves(nw * n)
-                + 2 * (wbits - 1) * _waves(nw * nb))
-    lam = n / nb
-    k2 = _waves(nw * nb) * (lam + 2.5 * math.sqrt(lam) + 1)
-    for j in range(nw):
-        bits = min(wbits, max(0, _SCALAR_BITS - wbits * j))
-        if 0 < bits < wbits:
-            k2 = max(k2, n / 2 ** bits)
-        elif bits == 0 and _SCALAR_BITS - wbits * (j - 1) >= wbits:
-            k2 = max(k2, n / 2)
-    lanes = fold_lanes(nb)
-    r = nb // lanes
-    k3 = 2 * r + 2 * math.log2(lanes) + math.log2(r)
-    return k2 + k3
+    return (math.ceil(math.log2(max(n, 2))) * _waves(nw * n)
+            + 2 * (wbits - 1) * _waves(nw * nb))
 
 
 def best_wbits(n: int) -> int:
-    return min(range(8, 17), key=lambda w: (msm_cost(n, w), w))
+    if route(n) == "small":
+        return min(range(8, 17), key=lambda w: (small_msm_cost(n, w), w))
+    return next((w for top, w in _LARGE_WIDTHS if n <= top),
+                _LARGE_WIDTH_ABOVE)
 
 
 @dataclass(frozen=True)
@@ -185,18 +191,116 @@ def _signed(neg, p):
     return F.select(neg, F.neg(X), X), Y, Z, F.select(neg, F.neg(T), T)
 
 
-def bucket_accumulate_plain(keys, offsets, points, nb: int, shift: int):
-    """Plain twin of K2: the same adds in the same order."""
-    pts = F.unpack_points(points)
-    return _bucket_walk(
-        keys, offsets, nb, shift,
-        lambda w, pos, idx, neg: _signed(neg, tuple(c[:, idx] for c in pts)),
-        lambda p: p, F.point_add)
+def _lane_add(p, q):
+    """p + q as the lane-parallel kernels add (csrc/lanes.cuh lane_add_pt):
+    q's cached form, then the cached addition."""
+    return add_cached(p, cached(q))
+
+
+def accumulate_levels(n: int, chunk: int = ACCUMULATE_CHUNK,
+                      chunk1: int = ACCUMULATE_CHUNK1) -> list[int]:
+    """K2's record counts per window, level by level: n sorted keys, then
+    2 ceil(N / C) pieces after a level of N > C records, C = chunk on the
+    first level and chunk1 after it (both at least 4, so that N falls)."""
+    sizes = [n]
+    while sizes[-1] > (chunk if len(sizes) == 1 else chunk1):
+        c = chunk if len(sizes) == 1 else chunk1
+        sizes.append(2 * -(-sizes[-1] // c))
+    return sizes
+
+
+def _accumulate_scratch(nw: int, n: int, chunk: int, chunk1: int) -> int:
+    """int32 words of K2's scratch: the points' cached forms (40 n), then
+    two buffers of 41 nw N (keys, then points) for levels 1 and 2, the
+    later levels reusing them in turn."""
+    sizes = accumulate_levels(n, chunk, chunk1) + [0, 0]
+    return 40 * n + 41 * nw * (sizes[1] + sizes[2])
+
+
+def bucket_accumulate_plain(keys, offsets, points, nb: int, shift: int,
+                            chunk: int = ACCUMULATE_CHUNK,
+                            chunk1: int = ACCUMULATE_CHUNK1):
+    """Plain twin of K2: the same chunked levels over records in cached form
+    (csrc/bucket_accumulate.cu), vectorized over every (window, chunk)
+    worker, with the kernel's additions in its association.  offsets are
+    not read: a bucket no run reaches keeps the identity, as the kernel
+    writes it from offsets."""
+    nw, n = keys.shape
+    dev = keys.device
+    cpts = cached(F.unpack_points(points))
+    out = [c.clone() for c in F.identity_like(
+        torch.zeros((F.NL, nw * nb), dtype=torch.int64, device=dev))]
+    rows = torch.arange(nw, device=dev).unsqueeze(1)
+    rkey = keys >> (shift + 1)                    # the records' buckets
+
+    def load(rc):
+        """The cached forms at (row, rc), -P's where the sign bit is set."""
+        key = keys[rows, rc]
+        neg = ((key >> shift) & 1) == 1
+        c = tuple(x[:, key & ((1 << shift) - 1)] for x in cpts)
+        return (F.select(neg, c[1], c[0]), F.select(neg, c[0], c[1]),
+                F.select(neg, F.neg(c[2]), c[2]), c[3])
+
+    N = n
+    while True:
+        K = -(-N // chunk)
+        Nn = 2 * K if N > chunk else 0
+        s = torch.arange(K, device=dev) * chunk
+        e = (s + chunk).clamp(max=N)
+        prev = torch.where(s > 0, rkey[:, (s - 1).clamp(min=0)], -1)
+        nxt = torch.where(e < N, rkey[:, e.clamp(max=N - 1)], -1)
+        ident = F.identity_like(torch.zeros((F.NL, nw, K), dtype=torch.int64,
+                                            device=dev))
+        c_ident = cached(ident)
+        acc = first = ident
+        before = torch.full((nw, K), -1, device=dev)
+        run_start = s.expand(nw, K)
+        lo = torch.zeros((nw, K), dtype=torch.int64, device=dev)
+        hi = lo.clone()
+        through = torch.zeros((nw, K), dtype=torch.bool, device=dev)
+        for i in range(chunk):
+            r = s + i
+            valid = (r < e).expand(nw, K)
+            rc = r.clamp(max=N - 1)
+            kr = torch.where(valid, rkey[:, rc], -1)
+            kn = torch.where(valid & (r + 1 < e), rkey[:, (r + 1).clamp(
+                max=N - 1)], -1)
+            real = kr > 0
+            q = tuple(F.select(real, x, i_) for x, i_ in zip(load(rc), c_ident))
+            restart = (kr != before) if i else torch.ones_like(valid)
+            acc = add_cached(tuple(F.select(restart, i_, a)
+                                   for i_, a in zip(ident, acc)), q)
+            run_start = torch.where(restart, r, run_start)
+            ends = real & ((r == e - 1) | (kn != kr))
+            into = ends & (run_start == s) & (kr == prev)
+            on = ends & (r == e - 1) & (kr == nxt)
+            w_d, c_d = (ends & ~into & ~on).nonzero(as_tuple=True)
+            for o, a in zip(out, acc):
+                o[:, w_d * nb + kr[w_d, c_d] - 1] = a[:, w_d, c_d]
+            first = tuple(F.select(into, a, f) for a, f in zip(acc, first))
+            lo = torch.where(into, kr, lo)
+            hi = torch.where(on, kr, hi)
+            through = torch.where(on, into, through)
+            before = kr
+        if not Nn:
+            return F.pack_points(out)
+        c_first, c_last = cached(first), cached(acc)
+        c_last = tuple(F.select(through, i_, x)
+                       for i_, x in zip(c_ident, c_last))
+        level_pts = tuple(torch.stack([a, b], dim=3).reshape(F.NL, nw, Nn)
+                          for a, b in zip(c_first, c_last))
+        rkey = torch.stack([lo, hi], dim=2).reshape(nw, Nn)
+
+        def load(rc, level_pts=level_pts):
+            return tuple(x[:, rows, rc] for x in level_pts)
+        N = Nn
+        chunk = chunk1
 
 
 def bucket_accumulate(keys, offsets, points, nb: int, shift: int):
     """Sorted keys (nw, n) int64, offsets (nw, nb + 1) int64, points
-    (4, 10, n) int32 -> bucket sums (4, 10, nw * nb) int32."""
+    (4, 10, n) int32 -> bucket sums (4, 10, nw * nb) int32.  One call
+    launches 1 + len(accumulate_levels(n)) kernels."""
     if keys.device.type == "cpu":
         return bucket_accumulate_plain(keys, offsets, points, nb, shift)
     nw, n = keys.shape
@@ -207,8 +311,11 @@ def bucket_accumulate(keys, offsets, points, nb: int, shift: int):
                       "bucket_accumulate points")
     out = torch.empty((4, F.NL, nw * nb), dtype=torch.int32,
                       device=keys.device)
-    _build.launch("bucket_accumulate", keys, offsets, points, out, n, nw, nb,
-                  shift)
+    scratch = torch.empty((_accumulate_scratch(nw, n, ACCUMULATE_CHUNK,
+                                               ACCUMULATE_CHUNK1),),
+                          dtype=torch.int32, device=keys.device)
+    _build.launch("bucket_accumulate", keys, offsets, points, out, scratch, n,
+                  nw, nb, shift)
     bucket_accumulate.launches += 1
     return out
 
@@ -298,50 +405,88 @@ bucket_accumulate_affine.launches = 0
 
 
 # ------------------------------------------------------------------ K3
-def bucket_fold_plain(buckets, nw: int, nb: int):
-    """Plain twin of K3, the same adds in the same order."""
-    lanes = fold_lanes(nb)
-    R = nb // lanes
-    B = [c.view(F.NL, nw, lanes, R) for c in F.unpack_points(buckets)]
-    T = F.identity_like(torch.zeros((F.NL, nw, lanes), dtype=torch.int64,
-                                    device=buckets.device))
-    W = T
-    for r in range(R - 1, -1, -1):
-        T = F.point_add(T, tuple(c[..., r] for c in B))
-        W = F.point_add(W, T)
+def fold_shape(nb: int) -> tuple[int, int, int, int]:
+    """K3's layout for nb buckets: (G groups of R = min(FOLD_RUN, nb)
+    buckets per block, nblk blocks per window, G2 groups of R2 blocks in the
+    window pass)."""
+    R = min(FOLD_RUN, nb)
+    G = min(FOLD_GROUPS, nb // R)
+    nblk = nb // (G * R)
+    G2 = min(FOLD_GROUPS, nblk)
+    return G, nblk, G2, nblk // G2
+
+
+def _block_combine(T, V, W, log2_r: int):
+    """K3's block_combine over the groups on the last axis: (Σ_g T_g,
+    Σ_g V_g + R Σ_(g>=1) SufT_g, Σ_g W_g), W None for none."""
+    G = T[0].shape[-1]
     off = 1
-    while off < lanes:                  # suffix scan over the lanes
-        head = F.point_add(tuple(c[..., :lanes - off] for c in T),
-                           tuple(c[..., off:] for c in T))
-        T = tuple(torch.cat([h, c[..., lanes - off:]], dim=-1)
+    while off < G:                      # suffix scan over the groups
+        head = _lane_add(tuple(c[..., :G - off] for c in T),
+                         tuple(c[..., off:] for c in T))
+        T = tuple(torch.cat([h, c[..., G - off:]], dim=-1)
                   for h, c in zip(head, T))
         off *= 2
-    ident = F.identity_like(T[0][..., 0])
-    T = tuple(torch.cat([i.unsqueeze(-1), c[..., 1:]], dim=-1)
-              for i, c in zip(ident, T))
-    half = lanes // 2
-    while half >= 1:                    # tree sums over the lanes
-        T = F.point_add(tuple(c[..., :half] for c in T),
-                        tuple(c[..., half:2 * half] for c in T))
-        W = F.point_add(tuple(c[..., :half] for c in W),
-                        tuple(c[..., half:2 * half] for c in W))
+    tsum = tuple(c[..., 0] for c in T)
+    ident = F.identity_like(T[0][..., :1])
+    U = tuple(torch.cat([i, c[..., 1:]], dim=-1) for i, c in zip(ident, T))
+    half = G // 2
+    while half >= 1:                    # tree sums over the groups
+        U, V = (_lane_add(tuple(c[..., :half] for c in X),
+                          tuple(c[..., half:2 * half] for c in X))
+                for X in (U, V))
+        if W is not None:
+            W = _lane_add(tuple(c[..., :half] for c in W),
+                          tuple(c[..., half:2 * half] for c in W))
         half //= 2
-    acc = tuple(c[..., 0] for c in T)
-    for _ in range(R.bit_length() - 1):
-        acc = F.point_double(acc)
-    return F.pack_points(F.point_add(tuple(c[..., 0] for c in W), acc))
+    u = tuple(c[..., 0] for c in U)
+    for _ in range(log2_r):
+        u = F.point_double(u)
+    vout = _lane_add(tuple(c[..., 0] for c in V), u)
+    return tsum, vout, None if W is None else tuple(c[..., 0] for c in W)
+
+
+def bucket_fold_plain(buckets, nw: int, nb: int):
+    """Plain twin of K3 (csrc/bucket_fold.cu): its two passes with the same
+    additions in the same association, vectorized over windows, blocks and
+    groups."""
+    G, nblk, G2, R2 = fold_shape(nb)
+    R = nb // (G * nblk)
+    B = [c.view(F.NL, nw, nblk, G, R) for c in F.unpack_points(buckets)]
+    T = V = F.identity_like(torch.zeros((F.NL, nw, nblk, G),
+                                        dtype=torch.int64,
+                                        device=buckets.device))
+    for r in range(R - 1, -1, -1):
+        T = _lane_add(T, tuple(c[..., r] for c in B))
+        V = _lane_add(V, T)
+    tk, wk, _ = _block_combine(T, V, None, R.bit_length() - 1)
+    tk, wk = ([c.reshape(F.NL, nw, G2, R2) for c in X] for X in (tk, wk))
+    T = V = W = F.identity_like(torch.zeros((F.NL, nw, G2),
+                                            dtype=torch.int64,
+                                            device=buckets.device))
+    for r in range(R2 - 1, -1, -1):
+        V = _lane_add(V, T)
+        T = _lane_add(T, tuple(c[..., r] for c in tk))
+        W = _lane_add(W, tuple(c[..., r] for c in wk))
+    _, v, w = _block_combine(T, V, W, R2.bit_length() - 1)
+    for _ in range((G * R).bit_length() - 1):
+        v = F.point_double(v)
+    return F.pack_points(_lane_add(w, v))
 
 
 def bucket_fold(buckets, nw: int, nb: int):
-    """Bucket sums (4, 10, nw * nb) int32 -> window totals (4, 10, nw)."""
+    """Bucket sums (4, 10, nw * nb) int32 -> window totals (4, 10, nw).
+    One call launches two kernels; nb a power of two from 1 to 2^16 on
+    the card."""
     if buckets.device.type == "cpu":
         return bucket_fold_plain(buckets, nw, nb)
     _build.check_cuda(buckets, torch.int32, (4, F.NL, nw * nb),
                       "bucket_fold buckets")
-    lanes = fold_lanes(nb)
+    nblk = fold_shape(nb)[1]
+    part = torch.empty((2, 4, F.NL, nw * nblk), dtype=torch.int32,
+                       device=buckets.device)
     out = torch.empty((4, F.NL, nw), dtype=torch.int32, device=buckets.device)
-    _build.launch("bucket_fold", buckets, out, nw, nb, lanes,
-                  (nb // lanes).bit_length() - 1)
+    _build.launch("bucket_fold", buckets, part, out, nw, nb)
     bucket_fold.launches += 1
     return out
 

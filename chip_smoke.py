@@ -11,7 +11,11 @@
 2. holds K1-K4 against their plain PyTorch versions on the card at the
    range-proof path's shapes (nb = 1024 proofs of 64 bits, m = 1), words
    and flags exactly equal, and times both (CUDA events and the
-   profiler's device time); K2 also on the same points with every scalar
+   profiler's device time); K1 also limb for limb, and at n = 1, 7, 33
+   and 1,055 (the tails of its groups of five lanes), each with invalid
+   encodings, with its registers and products per second; K2 and K3 with
+   a scratch one element short, which each must refuse (the wrapper
+   raises, nothing launches); K2 also on the same points with every scalar
    equal (one run of all the points per window), whose time must stay
    within 3x the random-digit time; K4's verdict and folded point (also
    in canonical words) on the batch's totals, which sum to the identity,
@@ -41,8 +45,8 @@
    totals as points and the same verdict, with a non-canonical encoding
    rejected under the affine configuration too;
 7. with every launch count set to 0, runs R1CS verification through
-   zkvm_tpu_torch.proofs.r1cs.Verifier.verify on the two committed
-   fixtures (a Cloak 4x4 with 64-bit values, on the small route, and 512
+   zkvm_tpu_torch.proofs.r1cs.Verifier.verify (the Cloak with engine=, the
+   range circuit with device=) on the two committed fixtures (a Cloak 4x4 with 64-bit values, on the small route, and 512
    64-bit range gadgets, 2^15 multipliers, on K2/K3): the valid proof must
    accept, a proof with t_x + 1 and one with a non-canonical encoding
    (which K1 must flag) must raise VerificationError;
@@ -263,15 +267,39 @@ def main():
     enc[:, bad_cols[2]] = encoding_words([bytes(range(32))])[:, 0]
     enc[7, bad_cols[3]] |= 0x80000000                           # bit 255
     words = to_device(enc, dev)
-    pts_k, ok_k = decompress.ristretto_decode(words)
-    pts_p, ok_p = decompress.ristretto_decode_plain(words)
-    torch.cuda.synchronize()
-    require(torch.equal(ok_k, ok_p), "K1 ok flags differ from the plain version")
-    require(torch.equal(points_to_words(pts_k), points_to_words(pts_p)),
-            "K1 points differ from the plain version")
-    require(int(ok_k.sum()) == words.shape[1] - len(bad_cols)
-            and all(int(ok_k[c]) == 0 for c in bad_cols),
-            "K1 flags the wrong encodings")
+
+    def k1_check(w, bad):
+        """K1 against its plain version on encoding words w whose columns
+        `bad` are invalid: raw limbs, canonical words and flags equal, and
+        exactly `bad` flagged; returns the decoded points and flags."""
+        pts_k, ok_k = decompress.ristretto_decode(w)
+        pts_p, ok_p = decompress.ristretto_decode_plain(w)
+        torch.cuda.synchronize()
+        nn = w.shape[1]
+        require(torch.equal(ok_k, ok_p),
+                f"K1 ok flags differ from the plain version (n = {nn})")
+        require(torch.equal(pts_k, pts_p),
+                f"K1 limbs differ from the plain version (n = {nn})")
+        require(torch.equal(points_to_words(pts_k), points_to_words(pts_p)),
+                f"K1 points differ from the plain version (n = {nn})")
+        require(int(ok_k.sum()) == nn - len(bad)
+                and all(int(ok_k[c]) == 0 for c in bad),
+                f"K1 flags the wrong encodings (n = {nn})")
+        return pts_k, ok_k, pts_p, ok_p
+
+    pts_k, ok_k, pts_p, ok_p = k1_check(words, bad_cols)
+    # the tail: a group of five lanes per encoding, six groups a warp, so
+    # these sizes end inside a warp and inside a block; each has invalid
+    # encodings of the four kinds above
+    for nt in (1, 7, 33, 1055):
+        et = dyn[:, :nt].copy()
+        bad_t = sorted({0, nt // 3, nt - 1, (5 * nt) // 7})
+        for i, c in enumerate(bad_t):
+            et[:, c] = enc[:, bad_cols[i % len(bad_cols)]]
+        k1_check(to_device(et, dev), bad_t)
+    print(f"K1 at n = 1, 7, 33, 1,055 and {words.shape[1]:,}, invalid "
+          f"encodings at each: limbs, canonical words and flags equal to "
+          f"the plain version [{smi}]", flush=True)
     results = {}
     d1 = words.shape[1]
     results["K1"] = dict(
@@ -371,6 +399,35 @@ def main():
     print(f"K3 at nb = 1, 2, 4, 16, 32, 64 ({nw} windows): equal to the "
           f"plain version bit for bit [{smi}]", flush=True)
 
+    # the scratch contract: K2's and K3's C entries refuse a scratch one
+    # element shorter than their own constants need, and the wrappers raise
+    # without launching
+    real_acc, real_fold = msm._accumulate_scratch, msm._fold_scratch
+    launches_before = (msm.bucket_accumulate.launches,
+                       msm.bucket_fold.launches)
+    refused = []
+    for name, patch, call in (
+            ("K2", lambda: setattr(msm, "_accumulate_scratch",
+                                   lambda *a: real_acc(*a) - 1),
+             lambda: msm.bucket_accumulate(keys, offsets, points, nbk, shift)),
+            ("K3", lambda: setattr(msm, "_fold_scratch",
+                                   lambda *a: real_fold(*a) - 1),
+             lambda: msm.bucket_fold(buckets_k, nw, nbk))):
+        patch()
+        try:
+            call()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            if "scratch" in str(e):
+                refused.append(name)
+        finally:
+            msm._accumulate_scratch, msm._fold_scratch = real_acc, real_fold
+    require(refused == ["K2", "K3"] and launches_before == (
+        msm.bucket_accumulate.launches, msm.bucket_fold.launches),
+            f"a scratch one element short was not refused: {refused}")
+    print("K2 and K3 with a scratch one element short: refused, nothing "
+          "launched", flush=True)
+
     # K2 on the same points with every scalar equal: each window's digits
     # form one run of all the points (the skew the first K2 serialised)
     row = int(np.random.default_rng(2028).integers(0, total))
@@ -435,6 +492,17 @@ def main():
               f"bound_ms={v['bound'][0]:.7f} ({v['bound'][1]}) "
               f"max_abs_err={v['err']} launches_per_verify=1 [{smi}]",
               flush=True)
+    k1_dev = results["K1"]["dev_ms"]
+    k1_regs = [line.split(":", 1)[-1].strip() for line in _build.lib_path(
+        "decompress").with_suffix(".log").read_text().splitlines()
+        if "Used" in line or "spill" in line]
+    print(f"K1: {d1} encodings x {DECODE} products (257 squarings of {SQR}, "
+          f"24 multiplications of {MUL}): "
+          f"{d1 * DECODE / (results['K1']['ms'] * 1e-3):.4g} products/s by "
+          f"events, "
+          f"{'not measured' if k1_dev is None else f'{d1 * DECODE / (k1_dev * 1e-3):.4g}'}"
+          f" device-only, against the bound's {PRODUCTS_PER_S:.4g}; ptxas "
+          f"{k1_regs} [{smi}]", flush=True)
     k4_dev = results["K4"]["dev_ms"]
     print(f"K4 chain: {k4_levels} dependent field multiplications (a "
           f"one-thread chain runs {k4_muls} in a row); per level "
@@ -870,8 +938,12 @@ def main():
     reset()
     for name, fx in (("cloak4x4_64", cloak_fx), ("range512x64", range_fx)):
         timings = {}
+        # the Cloak through an engine (the seam R1CS verify resolves), the
+        # range circuit through a device
+        how = ({"engine": TorchEngine(dev)} if fx.circuit == "cloak"
+               else {"device": dev})
         fixture.r1cs_verifier(fx).verify(R1CSProof.from_bytes(fx.wire), pc,
-                                         r1cs_bp, device=dev, timings=timings)
+                                         r1cs_bp, timings=timings, **how)
         print(f"r1cs {name} accept: host_s={timings['host_s']:.3f} "
               f"device_s={timings['device_s']:.4f} "
               f"msm_size={timings['msm_size']} wbits={timings['wbits']} "
@@ -884,7 +956,7 @@ def main():
                     "the Cloak verification did not run the small route")
         for tamper, proof, f in tampered[name]:
             try:
-                fixture.r1cs_verifier(f).verify(proof, pc, r1cs_bp, device=dev)
+                fixture.r1cs_verifier(f).verify(proof, pc, r1cs_bp, **how)
                 rejected = False
             except VerificationError:
                 rejected = True

@@ -31,6 +31,8 @@ from zkvm_tpu_torch.constants import P
 from zkvm_tpu_torch.gadgets import allocate_value, cloak, range_proof_gadget
 from zkvm_tpu_torch.kernels import batch_verify_device as bvd
 from zkvm_tpu_torch.kernels import msm
+from zkvm_tpu_torch.kernels.engine import TorchEngine
+from zkvm_tpu_torch.proofs.engine import set_engine
 from zkvm_tpu_torch.proofs.errors import ProofError, VerificationError
 from zkvm_tpu_torch.proofs.generators import BulletproofGens, PedersenGens
 from zkvm_tpu_torch.proofs.r1cs import R1CSProof, Verifier
@@ -139,6 +141,36 @@ def test_verify_on_cpu_matches_jax_verdicts(tamper):
     except VerificationError:
         accepted = False
     assert accepted == (tamper is None) == _jax_verdict(wire)
+
+
+def test_verify_without_device_rides_the_default_engine(monkeypatch):
+    """With no device, verify resolves its engine as the range-proof entry
+    points do: set_engine's TorchEngine on the CPU, with its MSM
+    configuration, reaches split_msm_check, and the verdicts stay."""
+    config = msm.MsmConfig(sort=True, gather=True)
+    seen = []
+    real = bvd.split_msm_check
+
+    def spy(static, enc, static_sc, dyn_sc, wbits, cfg=None):
+        seen.append((static.device, cfg))
+        return real(static, enc, static_sc, dyn_sc, wbits, cfg)
+
+    monkeypatch.setattr(bvd, "split_msm_check", spy)
+    prev = set_engine(TorchEngine("cpu", config=config))
+    try:
+        verdicts = []
+        for tamper in (None, "t_x"):
+            try:
+                _port_verifier("cloak").verify(
+                    R1CSProof.from_bytes(_tampered(_case("cloak")[2], tamper)),
+                    PedersenGens(), BulletproofGens(GENS))
+                verdicts.append(True)
+            except VerificationError:
+                verdicts.append(False)
+    finally:
+        set_engine(prev)
+    assert verdicts == [True, False]
+    assert seen == [(torch.device("cpu"), config)] * 2
 
 
 @pytest.mark.parametrize("tamper", [None, "t_x"])

@@ -12,6 +12,9 @@ flags, so an edited source is rebuilt and a built one is reused.
 Every C entry point takes device pointers, sizes and the CUDA stream as
 plain integers, launches on that stream without synchronising, and
 returns cudaGetLastError(); the Python wrappers raise on a nonzero code.
+An entry that takes a scratch buffer also takes its length in elements
+and returns SCRATCH_TOO_SHORT, launching nothing, when the buffer is
+shorter than its compile-time layout needs.
 """
 
 from __future__ import annotations
@@ -34,12 +37,13 @@ FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+SCRATCH_TOO_SHORT = -1
 # C signature of each library's entry point (all return int)
 SIGNATURES = {
     "decompress": ("zkvm_ristretto_decode", [_P, _P, _P, _L, _P]),
     "bucket_accumulate": ("zkvm_bucket_accumulate",
-                          [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P]),
-    "bucket_fold": ("zkvm_bucket_fold", [_P, _P, _P, _I, _I, _P]),
+                          [_P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _P]),
+    "bucket_fold": ("zkvm_bucket_fold", [_P, _P, _L, _P, _I, _I, _P]),
     "horner_check": ("zkvm_horner_check", [_P, _P, _P, _I, _I, _I, _P]),
     "seg_combine": ("zkvm_seg_combine", [_P, _P, _P, _P, _L, _P]),
     "point_add": ("zkvm_point_add", [_P, _P, _P, _L, _P]),
@@ -129,6 +133,9 @@ def launch(name: str, *args) -> None:
     stream = torch.cuda.current_stream().cuda_stream
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     err = kernel(name)(*conv, stream)
+    if err == SCRATCH_TOO_SHORT:
+        raise RuntimeError(f"CUDA kernel {name}: the scratch is shorter than "
+                           "the kernel's layout needs; nothing launched")
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
 

@@ -184,7 +184,8 @@ def split_msm_check(static_words: torch.Tensor, dyn_enc_words: torch.Tensor,
 
 def fused_split_check(static_buf: bytes, dyn_s, dyn_enc_blob: bytes,
                       bp_gens, pc_gens, device="cuda",
-                      timings: dict | None = None) -> bool:
+                      timings: dict | None = None,
+                      config: MsmConfig | None = None) -> bool:
     """One split mega-check on `device`: the static scalars arrive as
     packed 32-byte bytes over the resident [B_blinding, B] + G(maxpad) +
     H(maxpad) columns, the dynamic points as raw 32-byte encodings
@@ -196,7 +197,8 @@ def fused_split_check(static_buf: bytes, dyn_s, dyn_enc_blob: bytes,
     13-bit recoder applies; the port needs neither, so the MSM has exactly
     n = S + D points and best_wbits(n) picks the width.  timings, when
     given, receives host_s (packing), device_s (upload, device chain, the
-    verdict's fetch), msm_size, wbits and route."""
+    verdict's fetch), msm_size, wbits and route; config as
+    batch_msm_check's."""
     t0 = time.perf_counter()
     dev = torch.device(device)
     S = len(static_buf) // 32
@@ -215,7 +217,7 @@ def fused_split_check(static_buf: bytes, dyn_s, dyn_enc_blob: bytes,
     t_host = time.perf_counter()
     flag = split_msm_check(static, to_device(enc, dev),
                            to_device(static_sc, dev), to_device(dyn_sc, dev),
-                           wbits)
+                           wbits, config)
     verdict = bool(flag.item())
     if timings is not None:
         timings.update(host_s=t_host - t0,

@@ -47,7 +47,9 @@
 // first level also writes the identity into every empty bucket.  The
 // scratch is the caller's: the cached points (40 n int32), then two
 // buffers of records (keys int32 and points (4, 10, .)), 41 nw N_1 and
-// 41 nw N_2 int32, used in turn.
+// 41 nw N_2 int32, used in turn.  The C entry takes its length and
+// returns kScratchTooShort, launching nothing, when it is shorter than
+// these constants need (msm.py sizes it from its own copies of them).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -191,13 +193,19 @@ unsigned blocks_for(int64_t N, int nw, int chunk) {
 
 }  // namespace
 
+constexpr int kScratchTooShort = -1;   // _build.py SCRATCH_TOO_SHORT
+
 extern "C" int zkvm_bucket_accumulate(const void* keys, const void* offsets,
                                       const void* pts, void* out,
-                                      void* scratch, int64_t n, int nw,
-                                      int nb, int shift, void* stream) {
+                                      void* scratch, int64_t scratch_len,
+                                      int64_t n, int nw, int nb, int shift,
+                                      void* stream) {
     if (n < 0 || nw < 0 || nb <= 0)
         return (int)cudaErrorInvalidValue;
     if (nw == 0) return 0;
+    const int64_t n1 = next_level(n, kChunk), n2 = next_level(n1, kChunk1);
+    if (scratch_len < 40 * n + 41 * (int64_t)nw * (n1 + n2))
+        return kScratchTooShort;
     cudaStream_t st = (cudaStream_t)stream;
     int32_t* cpts = (int32_t*)scratch;
     if (n > 0)

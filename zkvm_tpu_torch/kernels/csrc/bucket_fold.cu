@@ -31,7 +31,10 @@
 //   1. bucket_fold_block_kernel, one block of G = min(32, nb / R) groups of
 //      four lanes per run of BB = R G consecutive buckets (R = min(8, nb)),
 //      padded to one warp with idle groups that add identities: it writes the block's T_k = Σ B and W_k = Σ_i (i + 1) B_{k BB + i} to
-//      the scratch `part` (2, 4, 10, nw * nblk), nblk = nb / BB.
+//      the scratch `part` (2, 4, 10, nw * nblk), nblk = nb / BB; the C
+//      entry takes its length and returns kScratchTooShort, launching
+//      nothing, when it is shorter (msm.py sizes it from its own copies of
+//      kRun and kMaxGroups).
 //   2. bucket_fold_window_kernel, one block per window over its nblk
 //      (T_k, W_k): Σ_b b B_b = Σ_k W_k + BB · Σ_k k T_k, with
 //      Σ_k k T_k = Σ_g V_g + R2 · Σ_{g>=1} SufT_g over G2 = min(32, nblk)
@@ -173,14 +176,18 @@ int log2_exact(int x) {
 
 }  // namespace
 
-extern "C" int zkvm_bucket_fold(const void* buckets, void* part, void* out,
-                                int nw, int nb, void* stream) {
+constexpr int kScratchTooShort = -1;   // _build.py SCRATCH_TOO_SHORT
+
+extern "C" int zkvm_bucket_fold(const void* buckets, void* part,
+                                int64_t part_len, void* out, int nw, int nb,
+                                void* stream) {
     if (nw < 0 || nb < 1 || nb > (1 << 16) || (nb & (nb - 1)))
         return (int)cudaErrorInvalidValue;
     if (nw == 0) return 0;
     const int R = nb < kRun ? nb : kRun;
     const int G = nb / R < kMaxGroups ? nb / R : kMaxGroups;
     const int bb = G * R, nblk = nb / bb;
+    if (part_len < 80 * (int64_t)nw * nblk) return kScratchTooShort;
     const int G2 = nblk < kMaxGroups ? nblk : kMaxGroups;
     const unsigned threads = 4 * G < 32 ? 32 : 4 * G;
     cudaStream_t st = (cudaStream_t)stream;

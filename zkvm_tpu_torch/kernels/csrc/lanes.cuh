@@ -1,6 +1,7 @@
-// Point operations split over four lanes, one coordinate per lane.
+// Point operations split over four lanes, one coordinate per lane, and
+// field products split over a group of five lanes by output column.
 //
-// Shared by K2 (bucket_accumulate.cu), K3 (bucket_fold.cu) and K4
+// Point operations.  Shared by K2 (bucket_accumulate.cu), K3 (bucket_fold.cu) and K4
 // (horner_check.cu).  A group of four consecutive lanes of a warp holds one
 // point: lane j = lane & 3 holds coordinate j (X, Y, Z, T).  Each level of a
 // point operation puts its four independent multiplications on the four
@@ -23,6 +24,26 @@
 // add_cached (the same field operations in the same order, so the limbs
 // agree bit for bit).  fe_mul and fe_sq are field25519.cuh's, so its limb
 // audit holds.
+//
+// Column-split field elements (K1, decompress.cu).  A group of five lanes
+// holds one field element as Fe2: lane q holds limbs 2q and 2q + 1, its
+// "columns".  A product writes both operands to the group's shared arrays
+// in S layout (S[c] = 19 f_c, S[10 + c] = f_c, by the lane that holds
+// limb c), and each lane reads the limbs its columns need at addresses
+// that depend on q: S[10 + j] for j in [-10, 9] is the factor fe_mul takes
+// for limb j mod 10, 19 times it exactly when the pair wraps past limb 9.
+// lf_mul forms fe_mul's two column sums (20 products a lane); lf_sq forms
+// fe_sq's from its unordered pairs (column 2q pairs limb q + d with q - d,
+// column 2q + 1 limb q + 1 + d with q - d: 11 products a lane, against 55
+// on one thread), with fe_sq's int32 pre-scalings.  Then each lane runs
+// the two carry passes on its columns, taking the carry into limb 2q from
+// the lane before by one shuffle.  The int64 column sums are fe_mul's and
+// fe_sq's, so the limbs are theirs, and the limb audit of field25519.cuh
+// holds as it stands.  Additions run fe_add's carry pass the same way.
+// Every lane of the warp must call these together (the shuffles name the
+// whole warp, and __syncwarp fences the shared arrays); lanes past the
+// warp's last whole group form a group of their own that only skips its
+// stores.
 #pragma once
 #include "field25519.cuh"
 
@@ -115,6 +136,150 @@ __device__ __forceinline__ Fe lane_add(int j, const Fe& mine,
 __device__ __forceinline__ Fe lane_add_pt(int j, const Fe& mine,
                                           const Fe& q) {
     return lane_add(j, mine, lane_cached(j, q));
+}
+
+// ------------------------------------------------- column-split elements
+
+// Lane q of a group of five holds limbs 2q and 2q + 1 of an element.
+struct Fe2 {
+    int32_t v[2];
+};
+
+// The caller's place in its group of five lanes, and the group's two
+// 20-word shared arrays (S layout: S[c] = 19 f_c, S[10 + c] = f_c).
+struct Lane5 {
+    int q;          // index in the group
+    int base;       // the group's first lane
+    int prev;       // the lane holding limbs 2q - 2, 2q - 1 (mod 10)
+    int32_t* s0;
+    int32_t* s1;
+
+    __device__ __forceinline__ Lane5(int base_, int q_, int32_t* s)
+        : q(q_), base(base_), prev(base_ + (q_ == 0 ? 4 : q_ - 1)), s0(s),
+          s1(s + 20) {}
+};
+
+// the whole element on every lane of the group, limb c at index c
+__device__ __forceinline__ Fe lf_gather(const Lane5& g, const Fe2& a) {
+    Fe r;
+#pragma unroll
+    for (int c = 0; c < 10; c++)
+        r.v[c] = __shfl_sync(0xffffffffu, a.v[c & 1], g.base + (c >> 1));
+    return r;
+}
+
+// one carry_pass over the group's columns: limb 2q + 1 takes limb 2q's
+// carry, limb 2q the carry of limb 2q - 1 from the lane before (19 times
+// limb 9's into limb 0)
+__device__ __forceinline__ void lf_carry_pass(const Lane5& g, int64_t h[2]) {
+    const int64_t c0 = (h[0] + ((int64_t)1 << 25)) >> 26;
+    const int64_t c1 = (h[1] + ((int64_t)1 << 24)) >> 25;
+    h[0] -= c0 << 26;
+    h[1] -= c1 << 25;
+    const int64_t in = __shfl_sync(0xffffffffu, (long long)c1, g.prev);
+    h[0] += g.q == 0 ? 19 * in : in;
+    h[1] += c0;
+}
+
+__device__ __forceinline__ Fe2 lf_carried(const Lane5& g, int64_t h[2]) {
+    lf_carry_pass(g, h);
+    lf_carry_pass(g, h);
+    return Fe2{{(int32_t)h[0], (int32_t)h[1]}};
+}
+
+// the lane's limbs into S layout; the caller fences with __syncwarp
+__device__ __forceinline__ void lf_put(const Lane5& g, int32_t* S,
+                                       const Fe2& a) {
+    S[2 * g.q] = 19 * a.v[0];
+    S[2 * g.q + 1] = 19 * a.v[1];
+    S[10 + 2 * g.q] = a.v[0];
+    S[11 + 2 * g.q] = a.v[1];
+}
+
+// fe_mul(a, b) on the lane's columns k = 2q + t: Σ_i a_i b_(k-i), where
+// b's S layout read at 10 + k - i gives 19 b_(k-i+10) exactly when the
+// pair wraps (i > k); a_i doubles for odd i when k - i is odd too (t = 0)
+__device__ __forceinline__ Fe2 lf_mul(const Lane5& g, const Fe2& a,
+                                      const Fe2& b) {
+    __syncwarp();
+    lf_put(g, g.s0, a);
+    lf_put(g, g.s1, b);
+    __syncwarp();
+    const int32_t* A = g.s0 + 10;
+    const int32_t* B = g.s1 + 10 + 2 * g.q;
+    int64_t h[2] = {0, 0};
+#pragma unroll
+    for (int i = 0; i < 10; i++) {
+        const int32_t f = A[i];
+        h[0] += (int64_t)((i & 1) ? 2 * f : f) * B[-i];
+        h[1] += (int64_t)f * B[1 - i];
+    }
+    return lf_carried(g, h);
+}
+
+// fe_sq(a) on the lane's columns, from fe_sq's unordered pairs: column 2q
+// pairs limb q + d with limb q - d (d = 0 and 5 are squares; an odd pair
+// doubles), column 2q + 1 pairs q + 1 + d with q - d; S layout read at
+// 10 + q - d gives 19 f_(q-d+10) exactly when the pair wraps (d > q)
+__device__ __forceinline__ Fe2 lf_sq(const Lane5& g, const Fe2& a) {
+    __syncwarp();
+    lf_put(g, g.s0, a);
+    __syncwarp();
+    const int32_t* S = g.s0 + 10 + g.q;
+    int32_t up[6], down[6];
+#pragma unroll
+    for (int d = 0; d < 6; d++) {
+        up[d] = S[d];
+        down[d] = S[-d];
+    }
+    int64_t h[2] = {0, 0};
+#pragma unroll
+    for (int d = 0; d < 6; d++) {
+        // fe_sq's pre-scaling: 2 off the diagonal, 2 again for an odd pair
+        const int sh = ((g.q + d) & 1) + (d >= 1 && d <= 4);
+        h[0] += (int64_t)(int32_t)((uint32_t)up[d] << sh) * down[d];
+        if (d < 5) h[1] += (int64_t)(2 * up[d + 1]) * down[d];
+    }
+    return lf_carried(g, h);
+}
+
+// fe_add, fe_sub (minus) or fe_neg (a = 0, minus) on the lane's columns
+__device__ __forceinline__ Fe2 lf_add_sub(const Lane5& g, const Fe2& a,
+                                          const Fe2& b, bool minus) {
+    int64_t h[2];
+#pragma unroll
+    for (int t = 0; t < 2; t++)
+        h[t] = minus ? (int64_t)a.v[t] - b.v[t] : (int64_t)a.v[t] + b.v[t];
+    lf_carry_pass(g, h);
+    return Fe2{{(int32_t)h[0], (int32_t)h[1]}};
+}
+
+__device__ __forceinline__ Fe2 lf_add(const Lane5& g, const Fe2& a,
+                                      const Fe2& b) {
+    return lf_add_sub(g, a, b, false);
+}
+
+__device__ __forceinline__ Fe2 lf_sub(const Lane5& g, const Fe2& a,
+                                      const Fe2& b) {
+    return lf_add_sub(g, a, b, true);
+}
+
+__device__ __forceinline__ Fe2 lf_neg(const Lane5& g, const Fe2& a) {
+    return lf_add_sub(g, Fe2{{0, 0}}, a, true);
+}
+
+// the lane's limbs of a constant (c in __constant__ memory)
+__device__ __forceinline__ Fe2 lf_const(const Lane5& g, const int32_t* c) {
+    return Fe2{{c[2 * g.q], c[2 * g.q + 1]}};
+}
+
+__device__ __forceinline__ Fe2 lf_small(const Lane5& g, int32_t x) {
+    return Fe2{{g.q == 0 ? x : 0, 0}};
+}
+
+__device__ __forceinline__ Fe2 lf_select(bool m, const Fe2& a,
+                                         const Fe2& b) {
+    return Fe2{{m ? a.v[0] : b.v[0], m ? a.v[1] : b.v[1]}};
 }
 
 }  // namespace zk

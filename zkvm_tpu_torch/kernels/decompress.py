@@ -1,10 +1,10 @@
 """K1 ristretto_decode: Ristretto255 DECODE of raw 32-byte encodings.
 
 Replaces the JAX package's pallas_decompress.py::_decompress_kernel.  The
-CUDA kernel is csrc/decompress.cu (one thread per encoding, the whole
-inverse-square-root chain in registers; bound by operations — see its
-note).  ristretto_decode_plain below is the same computation in PyTorch
-ops: the CPU path and the kernel's yardstick on the card.
+CUDA kernel is csrc/decompress.cu (a group of five lanes per encoding,
+each product split over the group by output column; bound by operations,
+see its note).  ristretto_decode_plain below is the same computation in
+PyTorch ops: the CPU path and the kernel's yardstick on the card.
 
 Semantics (RFC 9496 §4.3.1, as the JAX kernel): s = 0 decodes to the
 identity and is valid; a non-canonical s, a negative s, a non-square, a

@@ -81,7 +81,10 @@ from .sort import radix_sort
 from .words import field_words_to_limbs, limbs_to_field_words, points_to_words
 
 # K2 records per worker (a group of four lanes) on its first level and on
-# the later ones: the kernel's kChunk and kChunk1, which it is compiled with
+# the later ones: the kernel's kChunk and kChunk1, which it is compiled
+# with.  These four size K2's and K3's scratch; each C entry refuses a
+# scratch shorter than its own constants need, and
+# tests/test_torch_scratch_contract.py holds them equal to the .cu sources'.
 ACCUMULATE_CHUNK = 32
 ACCUMULATE_CHUNK1 = 8
 FOLD_RUN = 8           # K3 buckets per group in its first pass
@@ -314,8 +317,8 @@ def bucket_accumulate(keys, offsets, points, nb: int, shift: int):
     scratch = torch.empty((_accumulate_scratch(nw, n, ACCUMULATE_CHUNK,
                                                ACCUMULATE_CHUNK1),),
                           dtype=torch.int32, device=keys.device)
-    _build.launch("bucket_accumulate", keys, offsets, points, out, scratch, n,
-                  nw, nb, shift)
+    _build.launch("bucket_accumulate", keys, offsets, points, out, scratch,
+                  scratch.numel(), n, nw, nb, shift)
     bucket_accumulate.launches += 1
     return out
 
@@ -416,6 +419,12 @@ def fold_shape(nb: int) -> tuple[int, int, int, int]:
     return G, nblk, G2, nblk // G2
 
 
+def _fold_scratch(nw: int, nb: int) -> int:
+    """int32 words of K3's scratch `part`, (2, 4, 10, nw nblk): each
+    first-pass block's T and W."""
+    return 2 * 4 * F.NL * nw * fold_shape(nb)[1]
+
+
 def _block_combine(T, V, W, log2_r: int):
     """K3's block_combine over the groups on the last axis: (Σ_g T_g,
     Σ_g V_g + R Σ_(g>=1) SufT_g, Σ_g W_g), W None for none."""
@@ -482,11 +491,10 @@ def bucket_fold(buckets, nw: int, nb: int):
         return bucket_fold_plain(buckets, nw, nb)
     _build.check_cuda(buckets, torch.int32, (4, F.NL, nw * nb),
                       "bucket_fold buckets")
-    nblk = fold_shape(nb)[1]
-    part = torch.empty((2, 4, F.NL, nw * nblk), dtype=torch.int32,
+    part = torch.empty((_fold_scratch(nw, nb),), dtype=torch.int32,
                        device=buckets.device)
     out = torch.empty((4, F.NL, nw), dtype=torch.int32, device=buckets.device)
-    _build.launch("bucket_fold", buckets, part, out, nw, nb)
+    _build.launch("bucket_fold", buckets, part, part.numel(), out, nw, nb)
     bucket_fold.launches += 1
     return out
 

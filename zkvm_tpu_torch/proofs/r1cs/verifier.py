@@ -11,6 +11,7 @@ import time
 
 from ...constants import L
 from ...oracle import scalar
+from ..engine import Engine, resolve_engine
 from ..errors import R1CSError, VerificationError
 from ..generators import BulletproofGens, PedersenGens
 from ..scalarvec import ScalarVec
@@ -221,19 +222,25 @@ class Verifier:
                 g_v, h_v, padded_n)
 
     def verify(self, proof: R1CSProof, pc_gens: PedersenGens,
-               bp_gens: BulletproofGens, device="cuda",
-               timings: dict | None = None) -> None:
+               bp_gens: BulletproofGens, device=None,
+               timings: dict | None = None,
+               engine: Engine | None = None) -> None:
         """Verify `proof` against the constraints laid on this verifier.
-        The mega-check runs through the fused split check on `device`
-        ("cpu" takes the kernels' plain PyTorch versions, as the tests do).
-        Raises VerificationError on reject, ProofError/R1CSError on
-        malformed input.  timings, when given, receives host_s (replay,
-        scalar assembly, packing), device_s (upload, device chain, the
-        verdict's fetch), msm_size, wbits and route."""
-        from ...kernels.batch_verify_device import (fused_split_check,
-                                                    require_device)
+        The mega-check runs through the fused split check on `engine`'s
+        device and MSM configuration, else on a TorchEngine on `device`
+        ("cpu" takes the kernels' plain PyTorch versions, as the tests do),
+        else on the default engine (the card), as the range-proof entry
+        points resolve theirs.  Raises VerificationError on reject,
+        ProofError/R1CSError on malformed input.  timings, when given,
+        receives host_s (replay, scalar assembly, packing), device_s
+        (upload, device chain, the verdict's fetch), msm_size, wbits and
+        route."""
+        from ...kernels.batch_verify_device import fused_split_check
 
-        dev = require_device(device)
+        eng = resolve_engine(device, engine)
+        if not eng.supports_fused_batch_verify:
+            raise TypeError("R1CS verification needs an engine with the "
+                            "fused split check (a TorchEngine)")
         t0 = time.perf_counter()
         dyn_s, dyn_enc, bb, bs, g_v, h_v, _ = self.verification_job_split_vec(
             proof, bp_gens, pc_gens)
@@ -241,7 +248,8 @@ class Verifier:
                       + g_v.buf + h_v.buf)
         t_job = time.perf_counter()
         ok = fused_split_check(static_buf, dyn_s, b"".join(dyn_enc),
-                               bp_gens, pc_gens, dev, timings)
+                               bp_gens, pc_gens, eng.device, timings,
+                               eng.config)
         if timings is not None:
             timings["host_s"] += t_job - t0
         if not ok:

@@ -2,12 +2,13 @@
 
     python3 chip_smoke.py
 
-1. prints the card's name and power limit, builds the twelve CUDA kernels
-   (K1 ristretto_decode, K2 bucket_accumulate, K3 bucket_fold, K4
+1. prints the card's name and power limit, builds the thirteen CUDA
+   kernels (K1 ristretto_decode, K2 bucket_accumulate, K3 bucket_fold, K4
    horner_check, K5 seg_combine, K6 point_add, K7 fe_mul, K8 fe_add, K9
    radix_sort, K10 gather_words, K11 bucket_accumulate_words, K12
-   bucket_accumulate_affine) from kernels/csrc, one nvcc each in parallel,
-   and prints the build time and each kernel's ptxas registers and spills;
+   bucket_accumulate_affine, and the small route's K5s small_scan) from
+   kernels/csrc, one nvcc each in parallel, and prints the build time and
+   each kernel's ptxas registers and spills;
 2. holds K1-K4 against their plain PyTorch versions on the card at the
    range-proof path's shapes (nb = 1024 proofs of 64 bits, m = 1), words
    and flags exactly equal, and times both (CUDA events and the
@@ -20,7 +21,7 @@
    within 3x the random-digit time; K4's verdict and folded point (also
    in canonical words) on the batch's totals, which sum to the identity,
    and on those of the same MSM with one digit raised by one, which sum
-   to that digit's point; K3 also at nb = 1 to 64; then the device half's
+   to that digit's point; K3 also at nb = 1 to 256; then the device half's
    stages, and window_totals at the widths around msm.best_wbits's choice
    (11 on this route), the minimum and median of several timings;
 3. holds K2 and K3 against their plain versions on the nb = 4096 batch's
@@ -34,11 +35,22 @@
    entry point zkvm_tpu_torch.proofs.rangeproof.batch_verify at nb = 1024
    and nb = 4096: a valid batch must accept, a batch with one t_x changed
    and one with a non-canonical point encoding must reject;
-5. holds K5 and K6 against their plain versions at the shapes of the
-   Cloak verification's small-route MSM (its first scan step and its
-   bucket fold), K7 and K8 at 2^16 elements, and window_totals_small
-   against window_totals_large at n = 1,282 and 2,048 (the route
-   crossover), and times them;
+5. holds the elementwise K5 and K6 against their plain versions at the
+   shapes of the Cloak verification's small-route MSM (a scan step and a
+   fold step), K7 and K8 at 2^16 elements; holds K5s and K3 (the small
+   route, kernels/msm.py window_totals_small: K5s's bucket sums, K3's
+   one-launch fold at nb = 128) limb for limb and in canonical words
+   against their plain versions, and their totals against
+   window_totals_large as points, at the Cloak MSM (1,055 points, w = 8),
+   at n = 1, 17, 1,282 and 2,048, on equal scalars and with an all-zero
+   window, and times them (events, device-only, plain, bound); times the
+   small route at w = 6 to 10 at 1,055, 1,282 and 2,048 points (min and
+   median), and the Cloak device half by stage; shows that
+   window_totals_small launches K5s and K3 once each (launch counts) and
+   no other kernel after the sort (torch.profiler, in a child process:
+   python3 chip_smoke.py --launch-check), with no host sync (CUDA sync
+   debug mode); and prints the route crossover (both routes on the same
+   inputs at 1,055, 1,282 and 2,048 points, totals equal);
 6. runs the bucket pipeline's three configurations (msm.MsmConfig: the
    default, sort + gather, affine) on the fused nb = 1024 and nb = 4096
    device halves and the 2^15-multiplier R1CS split check: equal window
@@ -46,12 +58,14 @@
    rejected under the affine configuration too;
 7. with every launch count set to 0, runs R1CS verification through
    zkvm_tpu_torch.proofs.r1cs.Verifier.verify (the Cloak with engine=, the
-   range circuit with device=) on the two committed fixtures (a Cloak 4x4 with 64-bit values, on the small route, and 512
-   64-bit range gadgets, 2^15 multipliers, on K2/K3): the valid proof must
+   range circuit with device=) on the two committed fixtures (a Cloak 4x4
+   with 64-bit values, on the small route, K5s and K3, and 512 64-bit
+   range gadgets, 2^15 multipliers, on K2/K3): the valid proof must
    accept, a proof with t_x + 1 and one with a non-canonical encoding
    (which K1 must flag) must raise VerificationError;
-8. with every launch count set to 0, calls the field entry points
-   pointwise.mul and pointwise.add (K7, K8; on no verify path);
+8. with every launch count set to 0, calls the entry points
+   pointwise.seg_combine, point_add, mul and add (K5-K8; on no verify
+   path);
 9. with every launch count set to 0, runs the engine path
    (kernels/engine.py TorchEngine): a batch of 1,024 proofs of mixed
    aggregation (256 each of m = 1, 2, 4, 8) through batch_verify, then
@@ -190,11 +204,79 @@ def same_ristretto(a, b):
                  | F.is_zero(F.sub(F.mul(Y1, Y2), F.mul(X1, X2)))).all())
 
 
+def kernel_counts(fn, reps=5, traces=4):
+    """Kernels (and copies) fn() runs on the card per call, by name, from
+    traces of reps calls each.  A trace can drop kernel events, at its
+    start as well as at its end, so each trace is bracketed by two marker
+    kernels (torch.cuda._sleep's spin_kernel) and kept only if both are in
+    it, and each name keeps its largest count over the kept traces: a trace
+    drops events but never adds one."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    best, kept = {}, 0
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(100000)
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        rows = {e.key: e.count for e in prof.key_averages()
+                if getattr(e, "device_time_total", 0) > 0}
+        if sum(v for k, v in rows.items() if "spin_kernel" in k) != 2:
+            continue
+        kept += 1
+        for k, v in rows.items():
+            if "spin_kernel" not in k:
+                best[k] = max(best.get(k, 0), v)
+    if not kept:
+        raise RuntimeError(f"chip smoke failed: {traces} traces, none with "
+                           "both its marker kernels")
+    return {k: v / reps for k, v in best.items()}
+
+
+def launch_check():
+    """python3 chip_smoke.py --launch-check, run by main() as a child
+    process: the kernels window_totals_small runs per call after its sort
+    (its trace less that of the sort alone) on a 1,055-point MSM at w = 8,
+    the Cloak's shape, printed as one JSON line with the sort's count.  A
+    fresh process, because the traces of a long one drop kernel events."""
+    from zkvm_tpu_torch.constants import L
+    from zkvm_tpu_torch.kernels import batch_verify_device as bvd
+    from zkvm_tpu_torch.kernels import msm
+    from zkvm_tpu_torch.kernels import scalarmod as sm
+    from zkvm_tpu_torch.kernels.words import words_to_points
+    from zkvm_tpu_torch.proofs.generators import BulletproofGens, PedersenGens
+    dev = torch.device("cuda")
+    n = 1055
+    pts = words_to_points(bvd.static_gens_words(
+        BulletproofGens(1024), PedersenGens(), 1024, 1, dev))[:, :, :n]
+    pts = pts.contiguous()
+    rs = np.random.default_rng(2030)
+    ks = [int.from_bytes(rs.bytes(32), "little") % L for _ in range(n)]
+    digits = sm.signed_digits(sm.ints_to_limbs(ks, dev), 8)
+
+    def sort_only():
+        keys, _ = msm.pack_keys(digits)
+        return torch.sort(keys, dim=1).values.contiguous()
+
+    whole = kernel_counts(lambda: msm.window_totals_small(pts, digits, 8))
+    sort_n = kernel_counts(sort_only)
+    after = {k: v - sort_n.get(k, 0) for k, v in whole.items()
+             if v != sort_n.get(k, 0)}
+    print(json.dumps([after, sum(sort_n.values())]))
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:] == ["--launch-check"]:
+        return launch_check()
     from zkvm_tpu_torch import fixture
     from zkvm_tpu_torch.kernels import (_build, combine, decompress, gather,
                                         msm, pointwise, sort)
@@ -385,10 +467,11 @@ def main():
     k2_adds = results["K2"]["adds"]
     totals_k = msm.bucket_fold(buckets_k, nw, nbk)
 
-    # K3 at the narrow windows a caller may ask for (wbits 1 to 7), where a
-    # first-pass block holds fewer groups than a warp: bucket sums taken
-    # from the nb = 1024 ones
-    for nbs in (1, 2, 4, 16, 32, 64):
+    # K3 at the narrow windows a caller may ask for (wbits 1 to 9): a
+    # first-pass block of fewer groups than a warp up to nb = 4, and one
+    # launch up to nb = 256 (the small route's fold); bucket sums taken from
+    # the nb = 1024 ones
+    for nbs in (1, 2, 4, 8, 16, 32, 64, 128, 256):
         b_s = buckets_k[:, :, :nw * nbs].contiguous()
         t_k, t_p = msm.bucket_fold(b_s, nw, nbs), msm.bucket_fold_plain(
             b_s, nw, nbs)
@@ -396,7 +479,7 @@ def main():
         require(torch.equal(t_k, t_p)
                 and torch.equal(points_to_words(t_k), points_to_words(t_p)),
                 f"K3 totals differ from the plain version at nb = {nbs}")
-    print(f"K3 at nb = 1, 2, 4, 16, 32, 64 ({nw} windows): equal to the "
+    print(f"K3 at nb = 1 to 256 ({nw} windows): equal to the "
           f"plain version bit for bit [{smi}]", flush=True)
 
     # the scratch contract: K2's and K3's C entries refuse a scratch one
@@ -695,7 +778,8 @@ def main():
                msm.bucket_fold, combine.horner_check, pointwise.seg_combine,
                pointwise.point_add, pointwise.mul, pointwise.add,
                sort.radix_sort, gather.gather_words,
-               msm.bucket_accumulate_words, msm.bucket_accumulate_affine]
+               msm.bucket_accumulate_words, msm.bucket_accumulate_affine,
+               msm.small_scan]
 
     def reset():
         for k in kernels:
@@ -752,14 +836,24 @@ def main():
         decompress.ristretto_decode(to_device(encoding_words(dyn_enc), dev))[0]],
         dim=2)
     cnw = c_digits.shape[1]
-    runs, run_flags, _ = msm.sorted_runs(c_points, c_digits, cw)
     print(f"Cloak MSM: {cn} points, route {msm.route(cn)}, wbits {cw}, "
           f"{cnw} windows x {cnb} buckets", flush=True)
 
     def flat(x):
         return x.reshape(4, F.NL, -1).contiguous()
 
-    # K5 at the scan's first step (offset 1), K6 at the fold's width
+    # the elementwise K5 and K6 (entry points) at a scan step's and a fold
+    # step's shapes: each window's points in sorted order, negated where
+    # the digit is, and the flags of run starts
+    c_keys, _, c_shift = msm.sort_keys(c_digits, cnb)
+    runs = c_points[:, :, c_keys & ((1 << c_shift) - 1)]
+    c_neg = ((c_keys >> c_shift) & 1) == 1
+    for c in (0, 3):                                        # X and T
+        v = runs[c].to(torch.int64)
+        runs[c] = F.select(c_neg, F.neg(v), v).to(torch.int32)
+    c_mag = c_keys >> (c_shift + 1)
+    run_flags = torch.ones((cnw, cn), dtype=torch.int32, device=dev)
+    run_flags[:, 1:] = (c_mag[:, 1:] != c_mag[:, :-1]).to(torch.int32)
     p5, q5 = flat(runs[..., :cn - 1]), flat(runs[..., 1:])
     f5 = run_flags[:, 1:].reshape(-1).contiguous()
     p6, q6 = flat(runs[..., :cnb]), flat(runs[..., cnb:2 * cnb])
@@ -799,16 +893,162 @@ def main():
               f"plain_ms={v['plain_ms']:.2f} bound_ms={v['bound'][0]:.5f} "
               f"({v['bound'][1]}) max_abs_err={v['err']}", flush=True)
 
+    # K5s and K3, the small route, bit for bit against their plain versions
+    def sorted_small(dg):
+        keys_s, shift_s = msm.pack_keys(dg)
+        return torch.sort(keys_s, dim=1).values.contiguous(), shift_s
+
+    def small_check(tag, pts, dg, w=cw):
+        """K5s and K3 against their plain versions on one MSM: limbs and
+        canonical words equal; returns (keys, shift, bucket sums, totals,
+        max_abs_err)."""
+        nbs, nws = 1 << (w - 1), dg.shape[1]
+        keys_s, shift_s = sorted_small(dg)
+        b_k = msm.small_scan(keys_s, pts, nbs, shift_s)
+        b_p = msm.small_scan_plain(keys_s, pts, nbs, shift_s)
+        t_k = msm.bucket_fold(b_k, nws, nbs)
+        t_p = msm.bucket_fold_plain(b_k, nws, nbs)
+        torch.cuda.synchronize()
+        words = [points_to_words(x) for x in (b_k, b_p, t_k, t_p)]
+        require(torch.equal(b_k, b_p) and torch.equal(words[0], words[1]),
+                f"K5s bucket sums differ from the plain version ({tag})")
+        require(torch.equal(t_k, t_p) and torch.equal(words[2], words[3]),
+                f"K3 totals differ from the plain version ({tag}, "
+                f"nb = {nbs})")
+        return (keys_s, shift_s, b_k, t_k,
+                max(max_abs_err(words[0], words[1]),
+                    max_abs_err(words[2], words[3])))
+
+    gens_pts = words_to_points(bvd.static_gens_words(r1cs_bp, pc, 1024, 1, dev))
+    small_inputs = {"Cloak": (c_points, c_digits)}
+    for nx in (1, 17, 1282, 2048):
+        ks = [int.from_bytes(rs.bytes(32), "little") % L for _ in range(nx)]
+        small_inputs[f"n={nx}"] = (gens_pts[:, :, :nx].contiguous(),
+                                   sm.signed_digits(sm.ints_to_limbs(ks, dev),
+                                                    cw))
+    row = int(np.random.default_rng(2029).integers(0, cn))
+    small_inputs["Cloak, equal scalars"] = (
+        c_points, c_digits[row:row + 1].expand(cn, cnw).contiguous())
+    zero_win = c_digits.clone()
+    zero_win[:, 5] = 0
+    small_inputs["Cloak, window 5 all zero"] = (c_points, zero_win)
+    small_err = 0
+    for tag, (pts_s, dg_s) in small_inputs.items():
+        *_, t_s, err = small_check(tag, pts_s, dg_s)
+        require(same_points(t_s, msm.window_totals_large(pts_s, dg_s, cw)),
+                f"{tag}: the small route's totals differ from the large "
+                "route's")
+        small_err = max(small_err, err)
+    print(f"K5s and K3 at {', '.join(small_inputs)}: limbs and canonical "
+          f"words equal to the plain versions, totals equal to the large "
+          f"route's as points [{smi}]", flush=True)
+
+    c_sk, c_ss, c_buckets, c_totals, _ = small_check("Cloak", c_points,
+                                                     c_digits)
+    c_runs = (torch.searchsorted(c_sk, (torch.arange(1, cnb + 2, device=dev)
+                                        << (c_ss + 1)).expand(cnw, cnb + 1)
+                                 .contiguous()))
+    c_adds = int((c_runs[:, 1:] - c_runs[:, :-1] - 1).clamp(min=0).sum())
+    results["K5s"] = dict(
+        err=small_err,
+        ms=cuda_ms(lambda: msm.small_scan(c_sk, c_points, cnb, c_ss), 20),
+        dev_ms=device_ms(lambda: msm.small_scan(c_sk, c_points, cnb, c_ss),
+                         "small_scan_kernel", 20),
+        plain_ms=cuda_ms(lambda: msm.small_scan_plain(c_sk, c_points, cnb,
+                                                      c_ss), 2),
+        bound=bound_ms(c_sk.numel() * 8 + c_points.numel() * 4
+                       + c_buckets.numel() * 4, c_adds * ADD), lib_ms=None)
+    # K3's one-launch fold at the Cloak's nb (a line of its own; the kernels
+    # line keeps K3's range-proof shape)
+    fold_small = dict(
+        err=small_err,
+        ms=cuda_ms(lambda: msm.bucket_fold(c_buckets, cnw, cnb), 20),
+        dev_ms=device_ms(lambda: msm.bucket_fold(c_buckets, cnw, cnb),
+                         "bucket_fold_block_kernel", 20),
+        plain_ms=cuda_ms(lambda: msm.bucket_fold_plain(c_buckets, cnw, cnb),
+                         2),
+        bound=bound_ms(c_buckets.numel() * 4 + c_totals.numel() * 4,
+                       cnw * 2 * (cnb - 1) * ADD))
+    for k, v, lib in (("K5s", results["K5s"], "small_scan"),
+                      ("K3 (one launch)", fold_small, "bucket_fold")):
+        regs = [line.split(":", 1)[-1].strip() for line in _build.lib_path(
+            lib).with_suffix(".log").read_text().splitlines()
+            if "Used" in line]
+        adds = c_adds if k == "K5s" else cnw * 2 * (cnb - 1)
+        print(f"{k} Cloak ({cn} points, w = {cw}, {cnw} windows x {cnb} "
+              f"buckets; {adds} additions): kernel_ms={v['ms']:.4f} "
+              f"device_only_ms={fmt_ms(v['dev_ms'])} "
+              f"plain_ms={v['plain_ms']:.2f} "
+              f"bound_ms={v['bound'][0]:.7f} ({v['bound'][1]}) "
+              f"max_abs_err={v['err']} ptxas {regs} [{smi}]", flush=True)
+
+    # the small route's width: K5s + K3 after the sort, w = 6 to 10
+    c_lim = torch.cat([sm.decode_words_last(static_sc),
+                       sm.decode_words_last(dyn_sc)], 1)
+    by_size = {cn: (c_points, c_lim)}
+    for nx in (1282, 2048):
+        ks = [int.from_bytes(rs.bytes(32), "little") % L for _ in range(nx)]
+        by_size[nx] = (gens_pts[:, :, :nx].contiguous(),
+                       sm.ints_to_limbs(ks, dev))
+    faster = {}
+    for nx, (pts_s, lim_s) in by_size.items():
+        dws = {w: sm.signed_digits(lim_s, w) for w in range(6, 11)}
+        samples = {w: [] for w in dws}
+        for _ in range(7):
+            for w, dw in dws.items():
+                samples[w].append(cuda_ms(
+                    lambda: msm.window_totals_small(pts_s, dw, w), 3))
+        sweep = {w: (min(v), float(np.median(v))) for w, v in samples.items()}
+        faster[nx] = {w for w, (a, md) in sweep.items()
+                      if a < 0.9 * sweep[8][0] and md < 0.9 * sweep[8][1]}
+        print(f"small route window_totals ms by wbits at n={nx} (min, "
+              f"median of 7 x 3 calls): " + json.dumps(
+                  {w: [round(a, 4), round(md, 4)] for w, (a, md) in
+                   sweep.items()}) + f" [{smi}]", flush=True)
+    better = set.intersection(*faster.values())
+    print(f"small route width: {sorted(better) or 'no width'} beats w = 8 by "
+          f"more than 10 % in min and median at all three sizes; "
+          f"best_wbits keeps {msm.SMALL_WBITS}", flush=True)
+
+    # window_totals_small: K5s and K3 once each, nothing else after the
+    # sort (the kernels it runs, less those of the same sort alone), and no
+    # host sync (CUDA sync debug mode raises on one)
+    reset()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        msm.window_totals_small(c_points, c_digits, cw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    require(counts() == [0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1],
+            f"window_totals_small launched {counts()}, not K5s and K3 once")
+    child = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--launch-check"], capture_output=True, text=True,
+                           timeout=600)
+    require(child.returncode == 0,
+            f"the launch check failed: {child.stderr[-2000:]}")
+    after, sort_n = json.loads(child.stdout.strip().splitlines()[-1])
+    require(sum(after.values()) == 2
+            and sum(v for k, v in after.items() if "small_scan_kernel" in k) == 1
+            and sum(v for k, v in after.items()
+                    if "bucket_fold_block_kernel" in k) == 1,
+            f"window_totals_small ran other kernels after the sort: {after}")
+    print(f"window_totals_small: after the sort {sum(after.values()):g} "
+          f"kernel launches a call, K5s and K3 once each (the sort alone: "
+          f"{sort_n:g} kernels and copies; traced in a child process); no "
+          f"host sync (CUDA sync debug mode 'error')", flush=True)
+
     # the Cloak device half by stage
     c_static = bvd.static_gens_words(r1cs_bp, pc, padded_n, 1, dev)
     c_enc = to_device(encoding_words(dyn_enc), dev)
-    c_totals = msm.window_totals(c_points, c_digits, cw)
     stages = {
         "recode": lambda: sm.signed_digits(torch.cat([
             sm.decode_words_last(static_sc), sm.decode_words_last(dyn_sc)], 1),
             cw),
         "K1 decode": lambda: decompress.ristretto_decode(c_enc),
-        "sort+gather+sign": lambda: msm.sorted_runs(c_points, c_digits, cw),
+        "pack+sort": lambda: sorted_small(c_digits),
+        "K5s": lambda: msm.small_scan(c_sk, c_points, cnb, c_ss),
+        "K3 fold": lambda: msm.bucket_fold(c_buckets, cnw, cnb),
         "window_totals_small": lambda: msm.window_totals_small(c_points,
                                                                c_digits, cw),
         "K4": lambda: combine.horner_check(c_totals.unsqueeze(2).contiguous(),
@@ -817,14 +1057,11 @@ def main():
             c_static, c_enc, static_sc, dyn_sc, cw),
     }
     print("Cloak device half stages (ms): " + json.dumps(
-        {k: round(cuda_ms(f, 5), 4) for k, f in stages.items()}), flush=True)
+        {k: round(cuda_ms(f, 5), 4) for k, f in stages.items()})
+        + f" [{smi}]", flush=True)
 
     # the route crossover: both routes on the same points and digits
-    gens_pts = words_to_points(bvd.static_gens_words(r1cs_bp, pc, 1024, 1, dev))
-    for nx in (1282, 2048):
-        pts_n = gens_pts[:, :, :nx].contiguous()
-        ks = [int.from_bytes(rs.bytes(32), "little") % L for _ in range(nx)]
-        lim = sm.ints_to_limbs(ks, dev)
+    for nx, (pts_n, lim) in by_size.items():
         w = msm.best_wbits(nx)
         dg = sm.signed_digits(lim, w)
         small = msm.window_totals_small(pts_n, dg, w)
@@ -942,18 +1179,22 @@ def main():
         # range circuit through a device
         how = ({"engine": TorchEngine(dev)} if fx.circuit == "cloak"
                else {"device": dev})
+        before = counts()
         fixture.r1cs_verifier(fx).verify(R1CSProof.from_bytes(fx.wire), pc,
                                          r1cs_bp, timings=timings, **how)
+        per_verify = [a - b for a, b in zip(counts(), before)]
         print(f"r1cs {name} accept: host_s={timings['host_s']:.3f} "
               f"device_s={timings['device_s']:.4f} "
               f"msm_size={timings['msm_size']} wbits={timings['wbits']} "
-              f"route={timings['route']} [{smi}]", flush=True)
+              f"route={timings['route']} launches per verification "
+              f"{per_verify} [{smi}]", flush=True)
         if name.startswith("cloak"):
             require(timings["route"] == "small"
-                    and pointwise.seg_combine.launches > 0
-                    and pointwise.point_add.launches > 0
+                    and per_verify[12] == 1 and per_verify[2] == 1
+                    and per_verify[4] == per_verify[5] == 0
                     and msm.bucket_accumulate.launches == 0,
-                    "the Cloak verification did not run the small route")
+                    "the Cloak verification did not run the small route "
+                    f"through K5s and K3 once each: {per_verify}")
         for tamper, proof, f in tampered[name]:
             try:
                 fixture.r1cs_verifier(f).verify(proof, pc, r1cs_bp, **how)
@@ -964,18 +1205,21 @@ def main():
                               "was accepted")
             print(f"r1cs {name} {tamper} tampered: rejected", flush=True)
     r1cs_path = counts()
-    require(all(c > 0 for c in r1cs_path[:6]),
+    require(all(r1cs_path[i] > 0 for i in (0, 1, 2, 3, 12))
+            and r1cs_path[4] == r1cs_path[5] == 0,
             f"the R1CS path skipped a kernel: {r1cs_path}")
     print(f"R1CS path launches: {r1cs_path}", flush=True)
 
     # ---------------------------------------------------------- phase 8
     reset()
+    pointwise.seg_combine(p5, q5, f5)
+    pointwise.point_add(p6, q6)
     pointwise.mul(a7, c7)
     pointwise.add(a7, c7)
     torch.cuda.synchronize()
     entry = counts()
-    require(entry[6] > 0 and entry[7] > 0,
-            f"the field entry points did not launch K7/K8: {entry}")
+    require(all(entry[i] > 0 for i in (4, 5, 6, 7)),
+            f"the entry points did not launch K5-K8: {entry}")
 
     # ---------------------------------------------------------- phase 9
     # 1,024 proofs, 256 each of m = 1, 2, 4, 8, tiled from the fixtures
@@ -1144,6 +1388,9 @@ def main():
          "zkvm_tpu/kernels/pallas_msm.py:824"),
         ("K12", "bucket_accumulate_affine", "bucket_accumulate_affine.cu",
          "zkvm_tpu/kernels/pallas_msm.py:952"),
+        ("K5s", "small_scan", "small_scan.cu",
+         "zkvm_tpu/kernels/pallas_msm.py:89 (seg_combine_lm in _bucket_totals'"
+         " associative_scan, :252-307)"),
     ]
     line = {"kernels": [
         {"name": name, "route": "cuda",

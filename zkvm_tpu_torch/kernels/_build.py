@@ -56,6 +56,7 @@ SIGNATURES = {
                                 [_P, _P, _P, _P, _L, _I, _I, _I, _P]),
     "bucket_accumulate_affine": ("zkvm_bucket_accumulate_affine",
                                  [_P, _P, _P, _P, _L, _I, _I, _I, _P]),
+    "small_scan": ("zkvm_small_scan", [_P, _P, _P, _L, _I, _I, _I, _P]),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}

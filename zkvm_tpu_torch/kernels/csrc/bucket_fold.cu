@@ -4,8 +4,11 @@
 // pallas_msm.py::_fold_kernel_factory (stage 1: per-lane running sums
 // over the lane's buckets, highest first) and ::_fold_combine_kernel
 // (stage 2: Σ_l W_l + R · Σ_{l>=1} SufT_l).  The TPU carried stage 1
-// across an ordered grid axis.  Plain twin: msm.py bucket_fold_plain (the
-// same additions in the same association, so the limbs agree bit for bit).
+// across an ordered grid axis.  It also serves the small route
+// (msm.window_totals_small, nb = 128 at w = 8), in place of that route's
+// suffix scan and tree of point_add_lm (pallas_msm.py::_bucket_totals,
+// :311-321).  Plain twin: msm.py bucket_fold_plain (the same additions in
+// the same association, so the limbs agree bit for bit).
 //
 // Bound: latency.  The work is small (2 point additions per bucket, 9 field
 // multiplications each, against 160 bytes read per bucket: 24 windows x
@@ -25,17 +28,22 @@
 //   Σ_i (i + 1) x_i = Σ_g W_g + R · Σ_{g>=1} SufT_g,
 // where group g walks its items highest first keeping T_g (their sum) and
 // W_g = Σ_r (r + 1) x_{gR+r}, and SufT_g = Σ_{h>=g} T_h: a suffix scan over
-// the groups, tree sums, and log2(R) doublings (block_combine below).
+// the groups, tree sums, and log2(R) doublings (lanes.cuh block_combine).
 //
-// Two launches from one C call:
+// One or two launches from one C call:
 //   1. bucket_fold_block_kernel, one block of G = min(32, nb / R) groups of
-//      four lanes per run of BB = R G consecutive buckets (R = min(8, nb)),
-//      padded to one warp with idle groups that add identities: it writes the block's T_k = Σ B and W_k = Σ_i (i + 1) B_{k BB + i} to
-//      the scratch `part` (2, 4, 10, nw * nblk), nblk = nb / BB; the C
-//      entry takes its length and returns kScratchTooShort, launching
-//      nothing, when it is shorter (msm.py sizes it from its own copies of
-//      kRun and kMaxGroups).
-//   2. bucket_fold_window_kernel, one block per window over its nblk
+//      four lanes per run of BB = R G consecutive buckets (R = nb / 32
+//      within 1 to 8, so a block holds 32 groups from nb = 32 on), padded
+//      to one warp with idle groups that add identities.  Each group walks
+//      its R buckets from the highest, starting from the first one loaded.
+//      Where a window is one run (nblk = nb / BB = 1: nb <= 256), the
+//      block's W = Σ_i (i + 1) B_i is the window's total and is written to
+//      `out`: one launch, no scratch.  Otherwise it writes the block's
+//      T_k = Σ B and W_k = Σ_i (i + 1) B_{k BB + i} to the scratch `part`
+//      (2, 4, 10, nw * nblk); the C entry takes its length and returns
+//      kScratchTooShort, launching nothing, when it is shorter (msm.py
+//      sizes it from its own copies of kRun and kMaxGroups).
+//   2. (nblk > 1) bucket_fold_window_kernel, one block per window over its nblk
 //      (T_k, W_k): Σ_b b B_b = Σ_k W_k + BB · Σ_k k T_k, with
 //      Σ_k k T_k = Σ_g V_g + R2 · Σ_{g>=1} SufT_g over G2 = min(32, nblk)
 //      groups of R2 = nblk / G2 blocks, V_g = Σ_r r T_{g R2 + r}, and
@@ -106,11 +114,12 @@ __device__ void block_combine(int j, int g, int NG, int G, int log2_r, Fe T,
     vout = lane_add_pt(j, vout, U);
 }
 
-// kR buckets a group (8, or nb when nb < 8), a compile-time constant so
-// that the walk is unrolled.
+// kR buckets a group (1, 2, 4 or 8), a compile-time constant so that the
+// walk is unrolled.  out is null where the window takes several blocks.
 template <int kR>
 __global__ void bucket_fold_block_kernel(const int32_t* __restrict__ buckets,
-                                         int32_t* __restrict__ part, int nw,
+                                         int32_t* __restrict__ part,
+                                         int32_t* __restrict__ out, int nw,
                                          int nb, int G) {
     constexpr int kLog2R = kR == 8 ? 3 : kR == 4 ? 2 : kR == 2 ? 1 : 0;
     __shared__ Fe sa[kMaxGroups][4], sb[kMaxGroups][4];
@@ -122,17 +131,22 @@ __global__ void bucket_fold_block_kernel(const int32_t* __restrict__ buckets,
     // from G on (a block padded to one warp) own none and add identities,
     // since every lane of a warp takes part in the shuffles
     const int64_t first = (int64_t)blockIdx.x * G * kR + g * kR;
-    Fe T = lane_identity(j), V = lane_identity(j);
-    for (int r = kR - 1; r >= 0; r--) {
-        const Fe q = g < G ? fe_load(buckets, j, first + r, stride)
-                           : lane_identity(j);
-        T = lane_add_pt(j, T, q);
+    auto load = [&](int r) {
+        return g < G ? fe_load(buckets, j, first + r, stride)
+                     : lane_identity(j);
+    };
+    Fe T = load(kR - 1);
+    Fe V = T;
+    for (int r = kR - 2; r >= 0; r--) {
+        T = lane_add_pt(j, T, load(r));
         V = lane_add_pt(j, V, T);
     }
     Fe tsum, vout, wout;
     block_combine<false>(j, g, blockDim.x / 4, G, kLog2R, T, V, V, sa, sb,
                          sb, tsum, vout, wout);
-    if (g == 0) {
+    if (g == 0 && out != nullptr) {
+        fe_store(out, j, blockIdx.x, nw, vout);     // nblk = 1: block = window
+    } else if (g == 0) {
         fe_store(part, j, blockIdx.x, M, tsum);
         fe_store(part + 40 * M, j, blockIdx.x, M, vout);
     }
@@ -184,25 +198,28 @@ extern "C" int zkvm_bucket_fold(const void* buckets, void* part,
     if (nw < 0 || nb < 1 || nb > (1 << 16) || (nb & (nb - 1)))
         return (int)cudaErrorInvalidValue;
     if (nw == 0) return 0;
-    const int R = nb < kRun ? nb : kRun;
+    const int per = nb / kMaxGroups;
+    const int R = per < 1 ? 1 : per < kRun ? per : kRun;
     const int G = nb / R < kMaxGroups ? nb / R : kMaxGroups;
     const int bb = G * R, nblk = nb / bb;
-    if (part_len < 80 * (int64_t)nw * nblk) return kScratchTooShort;
+    if (part_len < (nblk > 1 ? 80 * (int64_t)nw * nblk : 0))
+        return kScratchTooShort;
     const int G2 = nblk < kMaxGroups ? nblk : kMaxGroups;
     const unsigned threads = 4 * G < 32 ? 32 : 4 * G;
     cudaStream_t st = (cudaStream_t)stream;
     const int32_t* b = (const int32_t*)buckets;
     int32_t* p = (int32_t*)part;
+    int32_t* o = nblk == 1 ? (int32_t*)out : nullptr;
     if (R == 8)
-        bucket_fold_block_kernel<8><<<nw * nblk, threads, 0, st>>>(b, p, nw, nb, G);
+        bucket_fold_block_kernel<8><<<nw * nblk, threads, 0, st>>>(b, p, o, nw, nb, G);
     else if (R == 4)
-        bucket_fold_block_kernel<4><<<nw * nblk, threads, 0, st>>>(b, p, nw, nb, G);
+        bucket_fold_block_kernel<4><<<nw * nblk, threads, 0, st>>>(b, p, o, nw, nb, G);
     else if (R == 2)
-        bucket_fold_block_kernel<2><<<nw * nblk, threads, 0, st>>>(b, p, nw, nb, G);
+        bucket_fold_block_kernel<2><<<nw * nblk, threads, 0, st>>>(b, p, o, nw, nb, G);
     else
-        bucket_fold_block_kernel<1><<<nw * nblk, threads, 0, st>>>(b, p, nw, nb, G);
+        bucket_fold_block_kernel<1><<<nw * nblk, threads, 0, st>>>(b, p, o, nw, nb, G);
     cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
+    if (e != cudaSuccess || nblk == 1) return (int)e;
     bucket_fold_window_kernel<<<nw, 4 * G2 < 32 ? 32 : 4 * G2, 0, st>>>(
         (const int32_t*)part, (int32_t*)out, nw, nblk, G2,
         log2_exact(nblk / G2), log2_exact(bb));

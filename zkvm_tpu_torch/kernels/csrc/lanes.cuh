@@ -1,10 +1,11 @@
 // Point operations split over four lanes, one coordinate per lane, and
 // field products split over a group of five lanes by output column.
 //
-// Point operations.  Shared by K2 (bucket_accumulate.cu), K3 (bucket_fold.cu) and K4
-// (horner_check.cu).  A group of four consecutive lanes of a warp holds one
-// point: lane j = lane & 3 holds coordinate j (X, Y, Z, T).  Each level of a
-// point operation puts its four independent multiplications on the four
+// Point operations.  Shared by K2 (bucket_accumulate.cu), K3
+// (bucket_fold.cu), K4 (horner_check.cu) and the small route's K5s
+// (small_scan.cu).  A group of four consecutive lanes of a warp holds one
+// point: lane j = lane & 3 holds coordinate j (X, Y, Z, T).  Each level of
+// a point operation puts its four independent multiplications on the four
 // lanes, which run one instruction stream on their own operands (selects,
 // not branches), and the operands cross by __shfl_sync within the group.
 // Every lane of the warp must call these functions together: the shuffles

@@ -4,9 +4,9 @@
 // pallas_field.point_add entry point) and the standalone uses of
 // pallas_msm.py::_add_kernel through point_add_lm: the small-MSM route's
 // bucket fold (the suffix scan and the tree over the suffix sums,
-// _bucket_totals) and the chunk fold of window_totals.  In the port the
-// small route's fold (kernels/msm.py::window_totals_small) launches it
-// 2 log2(nb) times.  The TPU kernels work on 512-lane tiles and their
+// _bucket_totals) and the chunk fold of window_totals.  The port's small
+// route folds with K3 (bucket_fold.cu), and this kernel is the entry point
+// pointwise.point_add.  The TPU kernels work on 512-lane tiles and their
 // callers pad every batch to that; here one thread per element takes any
 // B.  Plain twin: pointwise.py point_add_plain.
 //
@@ -16,9 +16,8 @@
 // Bound: bytes.  One point addition (9 field multiplications, ~900
 // 32x32->64 products) per element against 320 bytes read and 160
 // written; at the card's 3.35 TB/s and ~16.75e12 products/s the bytes
-// take about twice as long.  The fold's launches hold nw * nb / 2^k
-// threads, mostly under one wave, so in practice each is latency-bound
-// at about one point addition.
+// take about twice as long.  A launch under one wave is latency-bound at
+// about one point addition.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -5,11 +5,10 @@
 // seg_combine_lm), the combine of the associative scan in _bucket_totals,
 // the route the JAX package takes for MSMs of 2,048 points or fewer.
 // There XLA's associative_scan builds the tree and each level is one
-// Pallas call over 512-lane tiles; here kernels/msm.py runs a
-// Hillis-Steele scan of ceil(log2 R) launches over every window at once
-// (R the longest bucket run), and each launch is one thread per element
-// with its operands in registers.  Plain twin: pointwise.py
-// seg_combine_plain.
+// Pallas call over 512-lane tiles; here one launch is one thread per
+// element with its operands in registers.  The port's small route scans
+// with K5s (small_scan.cu), and this kernel is the entry point
+// pointwise.seg_combine.  Plain twin: pointwise.py seg_combine_plain.
 //
 // Input p, q (4, 10, B) int32 points (coordinate, limb, element), flags
 // (B,) int32; output (4, 10, B).  Neighbouring threads touch neighbouring
@@ -19,9 +18,9 @@
 // (9 field multiplications, ~900 32x32->64 products), an element with its
 // flag set only copies q; every element moves 324 bytes in and 160 out.
 // At the card's 3.35 TB/s and ~16.75e12 products/s the bytes take about
-// twice as long as the products.  A scan of a few thousand points per
-// window gives each launch tens of thousands of threads, under one wave,
-// so in practice a launch is latency-bound: about one point addition.
+// twice as long as the products.  A launch of tens of thousands of
+// elements is under one wave, so in practice it is latency-bound: about
+// one point addition.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -20,23 +20,31 @@ window_totals_large, the bucket pipeline:
      (accumulate_levels: 6 levels at 17,538 points).  Its records are
      points in cached form, made once per point.  Its work does not
      depend on how the digits fall: equal digits cost what random ones do;
-  3. K3 (csrc/bucket_fold.cu): each window's Σ_b b · B_b, in two
-     launches: blocks of FOLD_GROUPS four-lane groups over runs of
-     FOLD_GROUPS · FOLD_RUN buckets (nb / 256 blocks a window), then one
-     block per window over its blocks' sums (fold_shape).
+  3. K3 (csrc/bucket_fold.cu): each window's Σ_b b · B_b: blocks of up
+     to FOLD_GROUPS four-lane groups over runs of at most FOLD_GROUPS ·
+     FOLD_RUN buckets (nb / 256 blocks a window), then one block per
+     window over its blocks' sums (fold_shape); one launch where a window
+     is one block (nb <= 256).
 The twins (bucket_accumulate_plain, bucket_fold_plain) run the kernels'
 additions in the kernels' association, vectorized, so that the card's
 results equal theirs bit for bit; K11 and K12 keep the per-bucket walk
 (_bucket_walk), so their sums equal K2's as points.
 
-window_totals_small, the associative-scan route (JAX _bucket_totals):
-  2. gather and sign the points in sorted order (torch ops);
-  3. an inclusive segmented scan over each window's sorted runs:
-     ceil(log2 R) launches of K5 (kernels/pointwise.seg_combine), R the
-     longest bucket run of any window;
-  4. each bucket takes the scan's value at the end of its run;
-  5. a suffix scan over the buckets and a tree over the suffix sums,
-     2 log2(nb) launches of K6 (kernels/pointwise.point_add).
+window_totals_small, the small route (JAX _bucket_totals: an
+associative_scan over seg_combine_lm, the buckets read at the run ends, a
+suffix scan and a tree of point_add_lm), in two launches after the sort:
+  2. K5s (csrc/small_scan.cu): every bucket sum, a cluster of
+     SMALL_CLUSTER blocks per window (both shapes compile-time constants
+     of the kernel).  Each of the window's SMALL_CLUSTER
+     * SMALL_GROUPS groups of four lanes adds a chunk of consecutive sorted
+     records (gathered and signed by the kernel) and writes the runs that
+     end inside it; the pieces of runs that cross chunk edges meet in a
+     segmented scan of the chunks' tails in the cluster's shared memory,
+     whose depth the cluster finds on the card from its own window's runs;
+  3. K3 (bucket_fold): each window's Σ_b b · B_b, one block of 32 groups
+     of four buckets per window at nb = 128, one launch.
+small_scan_plain runs K5s's additions in its association, vectorized.
+The elementwise K5 and K6 (kernels/pointwise.py) stay as entry points.
 
 The bucket pipeline's stages follow an MsmConfig, as the JAX package's
 _bucket_totals_seq follows its environment switches (pallas_msm.py
@@ -64,7 +72,6 @@ spill into the index bits.
 
 from __future__ import annotations
 
-import math
 import os
 from dataclasses import dataclass
 
@@ -75,8 +82,6 @@ from . import _build
 from . import field as F
 from .combine import add_cached, cached
 from .gather import gather_words
-from .pointwise import point_add, seg_combine
-from .scalarmod import num_windows
 from .sort import radix_sort
 from .words import field_words_to_limbs, limbs_to_field_words, points_to_words
 
@@ -90,6 +95,11 @@ ACCUMULATE_CHUNK1 = 8
 FOLD_RUN = 8           # K3 buckets per group in its first pass
 FOLD_GROUPS = 32       # K3 groups of four lanes per block
 SMALL_MSM_MAX = 2048  # the largest MSM on the small route
+# K5s's groups of four lanes a block and blocks (a thread-block cluster) per
+# window: copies of small_scan.cu's kGroups and kCluster, which the twin
+# follows
+SMALL_GROUPS = 32
+SMALL_CLUSTER = 4
 
 # Choosing wbits on an H100.  The large route takes its width from a
 # table: 11 up to 387,493 points.  chip_smoke.py's width sweep prints
@@ -106,16 +116,9 @@ SMALL_MSM_MAX = 2048  # the largest MSM on the small route
 # design's cost model (15, then 16 from 4,716,319 points), which are not
 # measured on the card.
 #
-# The small route's unit is one launch-wave of point additions: at most
-# ceil(log2 n) scan launches of nw * n threads (the scan stops at the
-# longest bucket run), then 2 log2(nb) fold launches of at most nw * nb
-# threads, each launch one add deep; at ~512 resident threads per SM a
-# launch of t threads takes ceil(t / 67,584) waves.  Digit skew costs
-# nothing there.  Every launch is at least one wave, so the narrowest
-# window the search allows (8) wins at every small n; the JAX package's
-# 13 would fold 4,096 buckets per window.
-_SMS = 132
-_RESIDENT_THREADS = 512
+# The small route takes w = 8 (SMALL_WBITS): chip_smoke.py sweeps K5s + K3
+# over w = 6 to 10 at 1,055, 1,282 and 2,048 points (PERF.md section 5).
+SMALL_WBITS = 8
 _LARGE_WIDTHS = ((387_493, 11), (4_716_318, 15))   # (up to n points, wbits)
 _LARGE_WIDTH_ABOVE = 16
 
@@ -125,21 +128,9 @@ def route(n: int) -> str:
     return "small" if n <= SMALL_MSM_MAX else "large"
 
 
-def _waves(threads: int) -> int:
-    return max(1, math.ceil(threads / (_SMS * _RESIDENT_THREADS)))
-
-
-def small_msm_cost(n: int, wbits: int) -> float:
-    """The small route's cost in launch-waves (note above)."""
-    nb = 1 << (wbits - 1)
-    nw = num_windows(wbits)
-    return (math.ceil(math.log2(max(n, 2))) * _waves(nw * n)
-            + 2 * (wbits - 1) * _waves(nw * nb))
-
-
 def best_wbits(n: int) -> int:
     if route(n) == "small":
-        return min(range(8, 17), key=lambda w: (small_msm_cost(n, w), w))
+        return SMALL_WBITS
     return next((w for top, w in _LARGE_WIDTHS if n <= top),
                 _LARGE_WIDTH_ABOVE)
 
@@ -409,10 +400,11 @@ bucket_accumulate_affine.launches = 0
 
 # ------------------------------------------------------------------ K3
 def fold_shape(nb: int) -> tuple[int, int, int, int]:
-    """K3's layout for nb buckets: (G groups of R = min(FOLD_RUN, nb)
-    buckets per block, nblk blocks per window, G2 groups of R2 blocks in the
-    window pass)."""
-    R = min(FOLD_RUN, nb)
+    """K3's layout for nb buckets: (G groups of R = nb / FOLD_GROUPS
+    (within 1 to FOLD_RUN) buckets per block, nblk blocks per window, G2
+    groups of R2 blocks in the window pass, which runs only where nblk >
+    1)."""
+    R = min(FOLD_RUN, max(1, nb // FOLD_GROUPS))
     G = min(FOLD_GROUPS, nb // R)
     nblk = nb // (G * R)
     G2 = min(FOLD_GROUPS, nblk)
@@ -421,8 +413,9 @@ def fold_shape(nb: int) -> tuple[int, int, int, int]:
 
 def _fold_scratch(nw: int, nb: int) -> int:
     """int32 words of K3's scratch `part`, (2, 4, 10, nw nblk): each
-    first-pass block's T and W."""
-    return 2 * 4 * F.NL * nw * fold_shape(nb)[1]
+    first-pass block's T and W; none where nblk = 1."""
+    nblk = fold_shape(nb)[1]
+    return 2 * 4 * F.NL * nw * nblk if nblk > 1 else 0
 
 
 def _block_combine(T, V, W, log2_r: int):
@@ -458,17 +451,17 @@ def _block_combine(T, V, W, log2_r: int):
 def bucket_fold_plain(buckets, nw: int, nb: int):
     """Plain twin of K3 (csrc/bucket_fold.cu): its two passes with the same
     additions in the same association, vectorized over windows, blocks and
-    groups."""
+    groups; nblk = 1 ends with the first."""
     G, nblk, G2, R2 = fold_shape(nb)
     R = nb // (G * nblk)
     B = [c.view(F.NL, nw, nblk, G, R) for c in F.unpack_points(buckets)]
-    T = V = F.identity_like(torch.zeros((F.NL, nw, nblk, G),
-                                        dtype=torch.int64,
-                                        device=buckets.device))
-    for r in range(R - 1, -1, -1):
+    T = V = tuple(c[..., R - 1] for c in B)
+    for r in range(R - 2, -1, -1):
         T = _lane_add(T, tuple(c[..., r] for c in B))
         V = _lane_add(V, T)
     tk, wk, _ = _block_combine(T, V, None, R.bit_length() - 1)
+    if nblk == 1:
+        return F.pack_points(tuple(c[..., 0] for c in wk))
     tk, wk = ([c.reshape(F.NL, nw, G2, R2) for c in X] for X in (tk, wk))
     T = V = W = F.identity_like(torch.zeros((F.NL, nw, G2),
                                             dtype=torch.int64,
@@ -485,8 +478,8 @@ def bucket_fold_plain(buckets, nw: int, nb: int):
 
 def bucket_fold(buckets, nw: int, nb: int):
     """Bucket sums (4, 10, nw * nb) int32 -> window totals (4, 10, nw).
-    One call launches two kernels; nb a power of two from 1 to 2^16 on
-    the card."""
+    One call launches two kernels, one where nb <= 256; nb a power of two
+    from 1 to 2^16 on the card."""
     if buckets.device.type == "cpu":
         return bucket_fold_plain(buckets, nw, nb)
     _build.check_cuda(buckets, torch.int32, (4, F.NL, nw * nb),
@@ -568,75 +561,111 @@ def window_totals_large(points: torch.Tensor, digits: torch.Tensor,
     return bucket_fold(buckets, digits.shape[1], nb)
 
 
-def _flat(pts: torch.Tensor) -> torch.Tensor:
-    """(4, 10, ...) -> contiguous (4, 10, B), the kernels' layout."""
-    return pts.reshape(4, F.NL, -1).contiguous()
-
-
-def sorted_runs(points: torch.Tensor, digits: torch.Tensor, wbits: int):
-    """The small route's scan input: (each window's points in sorted
-    order, negated where the digit is negative, (4, 10, nw, n) int32;
-    run-start flags (nw, n) int32, 1 where the digit's magnitude changes;
-    the bucket run offsets (nw, nb + 1) of sort_keys)."""
-    n, nw = digits.shape
-    keys, offsets, shift = sort_keys(digits, 1 << (wbits - 1))
-    pts = points[:, :, keys & ((1 << shift) - 1)]
-    neg = ((keys >> shift) & 1) == 1
-    for c in (0, 3):                                        # X and T
-        v = pts[c].to(torch.int64)
-        pts[c] = F.select(neg, F.neg(v), v).to(torch.int32)
+# ------------------------------------------------------- the small route
+def small_scan_plain(keys, points, nb: int, shift: int):
+    """Plain twin of K5s (csrc/small_scan.cu): its chunks, its segmented
+    scan of the chunks' tails and its heads, vectorized over every (window,
+    group), with the kernel's additions in its association.  The kernel
+    stops the scan once no chunk waits for a carry; the steps after that
+    change no value, so the twin runs them all."""
+    nw, n = keys.shape
+    dev = keys.device
+    out = [c.clone() for c in F.identity_like(
+        torch.zeros((F.NL, nw * nb), dtype=torch.int64, device=dev))]
+    if n == 0:
+        return F.pack_points(out)
+    G = SMALL_CLUSTER * SMALL_GROUPS        # chunks a window
+    C = max(1, -(-n // G))                  # records a chunk
+    pts = F.unpack_points(points)
     mag = keys >> (shift + 1)
-    flags = torch.ones((nw, n), dtype=torch.int32, device=digits.device)
-    flags[:, 1:] = (mag[:, 1:] != mag[:, :-1]).to(torch.int32)
-    return pts, flags, offsets
+    ident = F.identity_like(torch.zeros((F.NL, nw, G), dtype=torch.int64,
+                                        device=dev))
+    s = torch.arange(G, device=dev) * C
+    e = (s + C).clamp(max=n)
+
+    def at(t, r, ok):
+        """t's columns at positions r (G,), -1 where not ok: (nw, G)."""
+        return torch.where(ok, t[:, r.clamp(0, n - 1)], -1)
+
+    def store(mask, keys_, val):
+        w, g = mask.nonzero(as_tuple=True)
+        for o, v in zip(out, val):
+            o[:, w * nb + keys_[w, g] - 1] = v[:, w, g]
+
+    before = at(mag, s - 1, (s > 0) & (s < n))
+    acc = head = ident
+    started = (s >= n).expand(nw, G)
+    in_run = torch.ones((nw, G), dtype=torch.bool, device=dev)
+    has_head = torch.zeros_like(in_run)
+    head_key = torch.zeros((nw, G), dtype=torch.int64, device=dev)
+    for i in range(C):                      # 1. each group's chunk, in order
+        r = s + i
+        valid = (r < e).expand(nw, G)
+        kr = at(mag, r, r < e)
+        kn = at(mag, r + 1, (r < e) & (r + 1 < n))
+        key = keys[:, r.clamp(max=n - 1)]
+        p = _signed(((key >> shift) & 1) == 1,
+                    tuple(c[:, key & ((1 << shift) - 1)] for c in pts))
+        q = cached(tuple(F.select(valid, a, b) for a, b in zip(p, ident)))
+        restart = kr != before
+        total = add_cached(tuple(F.select(restart, a, b)
+                                 for a, b in zip(ident, acc)), q)
+        acc = tuple(F.select(valid, a, b) for a, b in zip(total, acc))
+        started = started | (valid & restart)
+        in_run = in_run & ~(valid & restart)
+        ends = valid & (kr > 0) & (kn != kr)
+        store(ends & ~in_run, kr, acc)
+        head = tuple(F.select(ends & in_run, a, h) for a, h in zip(acc, head))
+        head_key = torch.where(ends & in_run, kr, head_key)
+        has_head = has_head | (ends & in_run)
+        before = kr
+
+    X, f = acc, started                     # 2. the chunks' segmented scan
+    g = torch.arange(G, device=dev)
+    d = 1
+    while d < G:
+        src = torch.where(g >= d, g - d, g)
+        total = _lane_add(tuple(c[..., src] for c in X), X)
+        X = tuple(F.select((g >= d) & ~f, a, b) for a, b in zip(total, X))
+        f = f | ((g >= d) & f[:, src])
+        d *= 2
+    carry = tuple(c[..., (g - 1).clamp(min=0)] for c in X)   # 3. heads
+    store(has_head, head_key, _lane_add(carry, head))
+    return F.pack_points(out)
+
+
+def small_scan(keys, points, nb: int, shift: int):
+    """Sorted keys (nw, n) int64 (pack_keys), points (4, 10, n) int32 ->
+    bucket sums (4, 10, nw * nb) int32, bucket b of window w (magnitude
+    b + 1) at w * nb + b, the identity where empty.  One launch of nw
+    clusters of SMALL_CLUSTER blocks of SMALL_GROUPS groups of four
+    lanes."""
+    if keys.device.type == "cpu":
+        return small_scan_plain(keys, points, nb, shift)
+    nw, n = keys.shape
+    _build.check_cuda(keys, torch.int64, (nw, n), "small_scan keys")
+    _build.check_cuda(points, torch.int32, (4, F.NL, n), "small_scan points")
+    out = torch.empty((4, F.NL, nw * nb), dtype=torch.int32,
+                      device=keys.device)
+    _build.launch("small_scan", keys, points, out, n, nw, nb, shift)
+    small_scan.launches += 1
+    return out
+
+
+small_scan.launches = 0
 
 
 def window_totals_small(points: torch.Tensor, digits: torch.Tensor,
                         wbits: int) -> torch.Tensor:
-    """The associative-scan route: the same totals as the JAX package's
-    pallas_msm._bucket_totals, from a Hillis-Steele segmented scan (K5)
-    and a suffix-sum fold (K6); shapes as window_totals."""
-    if points.device.type != "cpu":
-        _build.check_cuda(points, torch.int32, (4, F.NL, None),
-                          "window_totals_small points")
-    n, nw = digits.shape
+    """The small route: the same totals as the JAX package's
+    pallas_msm._bucket_totals from K5s's bucket sums and K3's fold, two
+    launches after the sort at w <= 9 (nb <= 256) and no read back to the
+    host; shapes as window_totals."""
     nb = 1 << (wbits - 1)
-    pts, flags, offsets = sorted_runs(points, digits, wbits)
-
-    # inclusive scan of each run (x_i <- x_(i-d) (+) x_i for i >= d); after
-    # the step with offset d every run of up to 2d points is summed, so the
-    # scan stops at the longest bucket run (the zero digits' run is unread)
-    longest = int((offsets[:, 1:] - offsets[:, :-1]).max())
-    d = 1
-    while d < longest:
-        out = seg_combine(_flat(pts[..., :n - d]), _flat(pts[..., d:]),
-                          flags[:, d:].reshape(-1).contiguous())
-        pts = torch.cat([pts[..., :d], out.view(4, F.NL, nw, n - d)], dim=-1)
-        flags = torch.cat([flags[:, :d], flags[:, d:] | flags[:, :n - d]],
-                          dim=1)
-        d *= 2
-
-    # bucket b (magnitude b + 1) is the scan's value at the end of its run
-    ends = offsets[:, 1:]
-    last = (ends - 1).clamp(min=0).expand(4, F.NL, nw, nb)
-    ident = torch.zeros((4, F.NL, 1, 1), dtype=torch.int32,
-                        device=digits.device)
-    ident[1, 0] = ident[2, 0] = 1
-    sums = torch.where(ends > offsets[:, :-1], pts.gather(3, last), ident)
-
-    # Σ_b (b + 1) · B_b = Σ_b S_b over the suffix sums S_b = Σ_(j >= b) B_j
-    d = 1
-    while d < nb:
-        head = point_add(_flat(sums[..., :nb - d]), _flat(sums[..., d:]))
-        sums = torch.cat([head.view(4, F.NL, nw, nb - d), sums[..., nb - d:]],
-                         dim=-1)
-        d *= 2
-    m = nb
-    while m > 1:
-        m //= 2
-        sums = point_add(_flat(sums[..., :m]), _flat(sums[..., m:2 * m])
-                         ).view(4, F.NL, nw, m)
-    return sums[..., 0].contiguous()
+    keys, shift = pack_keys(digits)
+    keys = torch.sort(keys, dim=1).values.contiguous()
+    return bucket_fold(small_scan(keys, points, nb, shift), digits.shape[1],
+                       nb)
 
 
 def window_totals(points: torch.Tensor, digits: torch.Tensor, wbits: int,

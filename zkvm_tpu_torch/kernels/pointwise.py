@@ -1,11 +1,13 @@
 """Elementwise point and field kernels over csrc/field25519.cuh.
 
   K5 seg_combine (csrc/seg_combine.cu): out = flag ? q : p + q, one step of
-     the small-MSM route's segmented scan (kernels/msm.py
-     window_totals_small).  Replaces pallas_msm.py::_seg_combine_kernel.
-  K6 point_add (csrc/point_add.cu): out = p + q, the small route's bucket
-     fold.  Replaces pallas_field.py::_point_add_kernel and the standalone
-     uses of pallas_msm.py::_add_kernel (point_add_lm).
+     a segmented scan: the counterpart of pallas_msm.py::seg_combine_lm
+     (its _seg_combine_kernel).
+  K6 point_add (csrc/point_add.cu): out = p + q, the counterpart of
+     pallas_field.point_add (its _point_add_kernel) and of
+     pallas_msm.py::point_add_lm (_add_kernel).
+     The small-MSM route (kernels/msm.py window_totals_small) runs on K5s
+     and K3; K5 and K6 are entry points.
   K7 mul (csrc/fe_mul.cu) and K8 add (csrc/fe_add.cu): batched GF(p)
      multiply and add with one carry pass, the counterparts of the JAX
      package's pallas_field.mul and .add entry points.  No verify path

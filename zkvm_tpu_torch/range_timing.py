@@ -1,17 +1,23 @@
-"""Times the fused range-proof verification path of one checkout of the
-port on a CUDA card, so that two checkouts can be compared on one card:
+"""Times the fused range-proof verification path and the small MSM route
+of one checkout of the port on a CUDA card, so that two checkouts can be
+compared on one card:
 
     python3 zkvm_tpu_torch/range_timing.py [TREE] [--nb 1024] [--reps 3]
 
 TREE (default: the checkout that holds this file) goes first on sys.path,
 so the zkvm_tpu_torch it times is TREE's own; the script uses only entry
-points that every checkout of the port has had since its first slice.  It
+points that every checkout of the port has had since its second slice.  It
 builds TREE's kernels, then prints one JSON line: the tree, the card's name
 and power limit, batch_verify's host_s and device_s for each of `reps`
 calls on nb tiled fixture proofs (64 bits, m = 1), and the device half's
-stages in ms (CUDA events, mean of 10 calls after one).  To compare a
-parent with a change, run parent, change, change, parent in one session.
-Exits non-zero without a CUDA device.
+stages in ms; and under "small_route" R1CS Verifier.verify's host_s and
+device_s on the committed Cloak 4x4 fixture for each of `reps` calls, the
+Cloak's window_totals_small and whole split_msm_check in ms, and
+window_totals_small against window_totals_large on the same points and
+digits at 1,282 and 2,048 points (w = 8).  Every ms is by CUDA events, the
+mean of 10 calls after one.  To compare a parent with a change, run
+parent, change, change, parent in one session.  Exits non-zero without a
+CUDA device.
 """
 
 import argparse
@@ -19,6 +25,8 @@ import json
 import os
 import subprocess
 import sys
+
+import numpy as np
 
 
 def cuda_ms(fn, reps=10):
@@ -106,11 +114,67 @@ def main():
         "whole device half": lambda: bvd.batch_msm_check(
             static, words, params_t, bbB_t, n, m, lg, wbits),
     }
+    stages_ms = {k: cuda_ms(f) for k, f in stages.items()}
     print(json.dumps({"tree": tree, "card": smi, "nb": nb, "wbits": wbits,
-                      "batch_verify": calls,
-                      "stages_ms": {k: cuda_ms(f) for k, f in stages.items()}}),
+                      "batch_verify": calls, "stages_ms": stages_ms,
+                      "small_route": small_route(dev, args.reps)}),
           flush=True)
     return 0
+
+
+def small_route(dev, reps):
+    """The Cloak's verify, its small-route MSM and the route against the
+    bucket pipeline at 1,282 and 2,048 points (module note)."""
+    import torch
+    from zkvm_tpu_torch import fixture
+    from zkvm_tpu_torch.constants import L
+    from zkvm_tpu_torch.kernels import decompress, msm
+    from zkvm_tpu_torch.kernels import batch_verify_device as bvd
+    from zkvm_tpu_torch.kernels import scalarmod as sm
+    from zkvm_tpu_torch.kernels.words import (encoding_words, scalar_words,
+                                              to_device, words_to_points)
+    from zkvm_tpu_torch.proofs.generators import BulletproofGens, PedersenGens
+    from zkvm_tpu_torch.proofs.r1cs import R1CSProof
+    fx = fixture.load_r1cs(fixture.R1CS_CLOAK)
+    pc = PedersenGens()
+    bp = BulletproofGens(max(fx.gens_capacity, 1024))
+    calls = []
+    for _ in range(reps):
+        t = {}
+        fixture.r1cs_verifier(fx).verify(R1CSProof.from_bytes(fx.wire), pc, bp,
+                                         device=dev, timings=t)
+        calls.append({k: t[k] for k in ("host_s", "device_s")})
+
+    # the Cloak MSM as its verify builds it
+    dyn_s, dyn_enc, bb, bs, g_v, h_v, padded_n = fixture.r1cs_verifier(
+        fx).verification_job_split_vec(R1CSProof.from_bytes(fx.wire), bp, pc)
+    static_sc = to_device(scalar_words([bb, bs] + g_v.to_ints()
+                                       + h_v.to_ints()), dev)
+    dyn_sc = to_device(scalar_words(dyn_s), dev)
+    static = bvd.static_gens_words(bp, pc, padded_n, 1, dev)
+    enc = to_device(encoding_words(dyn_enc), dev)
+    n = static_sc.shape[0] + dyn_sc.shape[0]
+    w = msm.best_wbits(n)
+    digits = sm.signed_digits(torch.cat([sm.decode_words_last(static_sc),
+                                         sm.decode_words_last(dyn_sc)], 1), w)
+    points = torch.cat([words_to_points(static),
+                        decompress.ristretto_decode(enc)[0]], dim=2)
+    ms = {"cloak window_totals_small": cuda_ms(
+              lambda: msm.window_totals_small(points, digits, w)),
+          "cloak split_msm_check": cuda_ms(
+              lambda: bvd.split_msm_check(static, enc, static_sc, dyn_sc, w))}
+
+    gens = words_to_points(bvd.static_gens_words(bp, pc, 1024, 1, dev))
+    rs = np.random.default_rng(2031)
+    for nx in (1282, 2048):
+        pts = gens[:, :, :nx].contiguous()
+        ks = [int.from_bytes(rs.bytes(32), "little") % L for _ in range(nx)]
+        dg = sm.signed_digits(sm.ints_to_limbs(ks, dev), 8)
+        ms[f"n={nx} small"] = cuda_ms(lambda: msm.window_totals_small(pts, dg,
+                                                                      8))
+        ms[f"n={nx} large"] = cuda_ms(lambda: msm.window_totals_large(pts, dg,
+                                                                      8))
+    return {"msm_size": n, "wbits": w, "verify": calls, "ms": ms}
 
 
 if __name__ == "__main__":

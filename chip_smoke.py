@@ -7,8 +7,9 @@
    horner_check, K5 seg_combine, K6 point_add, K7 fe_mul, K8 fe_add, K9
    radix_sort, K10 gather_words, K11 bucket_accumulate_words, K12
    bucket_accumulate_affine, and the small route's K5s small_scan) from
-   kernels/csrc, one nvcc each in parallel, and prints the build time and
-   each kernel's ptxas registers and spills;
+   kernels/csrc, one nvcc per source in parallel (K11 and K12 are entries
+   of K2's source), and prints the build time and each kernel function's
+   ptxas registers and spills;
 2. holds K1-K4 against their plain PyTorch versions on the card at the
    range-proof path's shapes (nb = 1024 proofs of 64 bits, m = 1), words
    and flags exactly equal, and times both (CUDA events and the
@@ -28,9 +29,14 @@
    MSM, with the same width sweep; K9 and K10 on the key rows of the
    nb = 1024 and nb = 4096 batches' MSMs (K9 sorting the (|digit|, sign)
    bits, equal also to torch.sort), K9 at full width on random 63-bit
-   keys of the nb = 4096 shape, and K11 and K12 on the nb = 1024 MSM (K11
-   also against K2 as points, K12 as points), and times them beside
-   torch.sort (K9) and torch indexing (K10);
+   keys of the nb = 4096 shape, and times them beside torch.sort (K9) and
+   torch indexing (K10); holds K11 and K12 (K2's levels over K10's word
+   and affine rows) bit for bit against their plain versions and equal to
+   K2's bucket sums as points on the nb = 1024 MSM, on its equal-scalar
+   digits (each within 3x its random-digit time), on the nb = 4096 MSM
+   and at w = 12 (the top window holds only the carry), times each
+   (events and device time), and shows each refusing a scratch one
+   element short;
 4. with every launch count set to 0, runs the range-proof path through its
    entry point zkvm_tpu_torch.proofs.rangeproof.batch_verify at nb = 1024
    and nb = 4096: a valid batch must accept, a batch with one t_x changed
@@ -89,6 +95,7 @@ failure, and without a CUDA device.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -173,6 +180,27 @@ def bound_ms(nbytes, products):
     by_bytes = nbytes / MEM_BYTES_PER_S * 1e3
     by_ops = products / PRODUCTS_PER_S * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def ptxas_report(build, src):
+    """[(function, "Used ... registers ...; spills")] from the ptxas log of
+    library `src`, the function's name cut to its kernel and template
+    argument."""
+    out, fn, spill = [], "?", ""
+    for line in build.lib_path(src).with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            m = re.search(r"\d+([a-z_]+_kernel)", name)
+            fn = m[1] if m else "?"
+            t = m and re.match(r"I(?:NS_)?(\d+)", name[m.end():])
+            arg = t and name[m.end() + t.end():][:int(t[1])]
+            if arg and arg.isalpha():
+                fn += f"<{arg}>"
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line:
+            out.append((fn, f"{line.split(':', 1)[-1].strip()}; {spill}"))
+    return out
 
 
 def max_abs_err(a, b):
@@ -306,10 +334,9 @@ def main():
     built = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(built)} kernels "
           f"{sorted(built)} (parallel nvcc)", flush=True)
-    for name in _build.SIGNATURES:
-        for line in _build.lib_path(name).with_suffix(".log").read_text().splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
+    for src in dict.fromkeys(map(_build.source, _build.SIGNATURES)):
+        for fn, regs in ptxas_report(_build, src):
+            print(f"  ptxas {src} {fn}: {regs}")
     dev = torch.device("cuda")
 
     label, n, m, records = fixture.load()
@@ -426,7 +453,7 @@ def main():
                 keys, offsets, pts, nbw, shift), 2),
             bound=bound_ms(keys.numel() * 8 + offsets.numel() * 8
                            + pts.numel() * 4 + b_k.numel() * 4, adds * ADD),
-            per_call=levels + 1, adds=adds)
+            per_call=levels + 1)
         t_k = msm.bucket_fold(b_k, nww, nbw)
         t_p = msm.bucket_fold_plain(b_k, nww, nbw)
         torch.cuda.synchronize()
@@ -463,8 +490,6 @@ def main():
 
     results["K2"], results["K3"], keys, offsets, shift, buckets_k = k2_k3(
         "nb=1024", points, digits, wbits)
-    runs = offsets[:, 1:] - offsets[:, :-1]
-    k2_adds = results["K2"]["adds"]
     totals_k = msm.bucket_fold(buckets_k, nw, nbk)
 
     # K3 at the narrow windows a caller may ask for (wbits 1 to 9): a
@@ -484,38 +509,42 @@ def main():
 
     # the scratch contract: K2's and K3's C entries refuse a scratch one
     # element shorter than their own constants need, and the wrappers raise
-    # without launching
-    real_acc, real_fold = msm._accumulate_scratch, msm._fold_scratch
-    launches_before = (msm.bucket_accumulate.launches,
-                       msm.bucket_fold.launches)
-    refused = []
-    for name, patch, call in (
-            ("K2", lambda: setattr(msm, "_accumulate_scratch",
-                                   lambda *a: real_acc(*a) - 1),
-             lambda: msm.bucket_accumulate(keys, offsets, points, nbk, shift)),
-            ("K3", lambda: setattr(msm, "_fold_scratch",
-                                   lambda *a: real_fold(*a) - 1),
-             lambda: msm.bucket_fold(buckets_k, nw, nbk))):
-        patch()
-        try:
-            call()
-            torch.cuda.synchronize()
-        except RuntimeError as e:
-            if "scratch" in str(e):
-                refused.append(name)
-        finally:
-            msm._accumulate_scratch, msm._fold_scratch = real_acc, real_fold
-    require(refused == ["K2", "K3"] and launches_before == (
-        msm.bucket_accumulate.launches, msm.bucket_fold.launches),
-            f"a scratch one element short was not refused: {refused}")
-    print("K2 and K3 with a scratch one element short: refused, nothing "
-          "launched", flush=True)
+    # without launching (K11's and K12's in phase 3)
+    def short_scratch(cases):
+        """cases: (name, the msm scratch size helper, call, wrapper).  Each
+        call runs with its helper made one element short; each must raise
+        that the scratch is short, its wrapper counting no launch."""
+        refused = []
+        for name, attr, call, fn in cases:
+            real, before = getattr(msm, attr), fn.launches
+            setattr(msm, attr, lambda *a, real=real: real(*a) - 1)
+            try:
+                call()
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                if "scratch" in str(e) and fn.launches == before:
+                    refused.append(name)
+            finally:
+                setattr(msm, attr, real)
+        names = [c[0] for c in cases]
+        require(refused == names, f"a scratch one element short was not "
+                                  f"refused: {refused} of {names}")
+        print(f"{', '.join(names)} with a scratch one element short: "
+              f"refused, nothing launched", flush=True)
+
+    short_scratch([
+        ("K2", "_accumulate_scratch",
+         lambda: msm.bucket_accumulate(keys, offsets, points, nbk, shift),
+         msm.bucket_accumulate),
+        ("K3", "_fold_scratch", lambda: msm.bucket_fold(buckets_k, nw, nbk),
+         msm.bucket_fold)])
 
     # K2 on the same points with every scalar equal: each window's digits
     # form one run of all the points (the skew the first K2 serialised)
     row = int(np.random.default_rng(2028).integers(0, total))
     digits_eq = digits[row:row + 1].expand(total, nw).contiguous()
-    k2_eq, _, *_ = k2_k3("nb=1024 equal scalars", points, digits_eq, wbits)
+    k2_eq, _, keys_eq, offsets_eq, shift_eq, buckets_eq = k2_k3(
+        "nb=1024 equal scalars", points, digits_eq, wbits)
     print(f"K2 skew: equal scalars {k2_eq['ms']:.4f} ms "
           f"(device-only {fmt_ms(k2_eq['dev_ms'])}) against random "
           f"{results['K2']['ms']:.4f} ({fmt_ms(results['K2']['dev_ms'])}): "
@@ -652,11 +681,13 @@ def main():
     words4 = to_device(dyn4, dev)
     total4 = static.shape[2] + dyn4.shape[1]
     wbits4 = msm.best_wbits(total4)
+    nbk4 = 1 << (wbits4 - 1)
     digits4 = sm.signed_digits(
         bvd.batch_msm_scalars(params4_t, bbB4_t, n, m, lg4), wbits4)
     points4 = torch.cat([words_to_points(static),
                          decompress.ristretto_decode(words4)[0]], dim=2)
-    k2_4, k3_4, *_ = k2_k3("nb=4096", points4, digits4, wbits4)
+    k2_4, k3_4, keys4, offsets4, shift4, buckets4 = k2_k3(
+        "nb=4096", points4, digits4, wbits4)
     width_sweep("nb=4096", points4,
                 bvd.batch_msm_scalars(params4_t, bbB4_t, n, m, lg4), wbits4)
 
@@ -721,53 +752,83 @@ def main():
         rs_keys.integers(0, 2**63 - 1, size=tuple(digits4.T.shape),
                          dtype=np.int64), device=dev), 0, 63)
 
-    # K11 and K12 on the nb = 1024 MSM, against their plain versions and K2
-    perm = keys & ((1 << shift) - 1)
-    rows = gather.gather_words(msm.point_rows(points), perm)
-    arows = gather.gather_words(msm.to_affine_words(points), perm)
-    b11 = msm.bucket_accumulate_words(keys, offsets, rows, nbk, shift)
-    b11_p = msm.bucket_accumulate_words_plain(keys, offsets, rows, nbk, shift)
-    b12 = msm.bucket_accumulate_affine(keys, offsets, arows, nbk, shift)
-    b12_p = msm.bucket_accumulate_affine_plain(keys, offsets, arows, nbk, shift)
-    torch.cuda.synchronize()
-    w11, w11_p = points_to_words(b11), points_to_words(b11_p)
-    w12, w12_p = points_to_words(b12), points_to_words(b12_p)
-    require(torch.equal(w11, w11_p), "K11 differs from its plain version")
-    require(same_points(b11, buckets_k), "K11's bucket sums differ from K2's")
-    require(torch.equal(w12, w12_p), "K12 differs from its plain version")
-    require(same_points(b12, buckets_k), "K12's bucket sums differ from K2's")
-    loads = int(runs.sum())
-    results["K11"] = dict(
-        err=max_abs_err(w11, w11_p),
-        ms=cuda_ms(lambda: msm.bucket_accumulate_words(keys, offsets, rows,
-                                                       nbk, shift), 20),
-        dev_ms=device_ms(lambda: msm.bucket_accumulate_words(
-            keys, offsets, rows, nbk, shift),
-            "bucket_accumulate_words_kernel", 20),
-        plain_ms=cuda_ms(lambda: msm.bucket_accumulate_words_plain(
-            keys, offsets, rows, nbk, shift), 2),
-        lib_ms=None,
-        bound=bound_ms(keys.numel() * 8 + offsets.numel() * 8
-                       + rows.numel() * 4 + b11.numel() * 4, k2_adds * ADD))
-    results["K12"] = dict(
-        err=max_abs_err(w12, w12_p),
-        ms=cuda_ms(lambda: msm.bucket_accumulate_affine(keys, offsets, arows,
-                                                        nbk, shift), 20),
-        dev_ms=device_ms(lambda: msm.bucket_accumulate_affine(
-            keys, offsets, arows, nbk, shift),
-            "bucket_accumulate_affine_kernel", 20),
-        plain_ms=cuda_ms(lambda: msm.bucket_accumulate_affine_plain(
-            keys, offsets, arows, nbk, shift), 2),
-        lib_ms=None,
-        bound=bound_ms(keys.numel() * 8 + offsets.numel() * 8
-                       + arows.numel() * 4 + b12.numel() * 4,
-                       k2_adds * 8 * MUL + loads * MUL))
+    # K11 and K12, K2's levels over K10's gathered word and affine rows:
+    # bit for bit against their plain versions and equal to K2's bucket
+    # sums as points, on the nb = 1024 MSM (random and equal scalars, w = 11
+    # and 12) and the nb = 4096 one
+    def k11_k12(tag, pts, ks, offs, sh, nbw, ref, plain=False):
+        """K11 and K12 on one sorted MSM; ref are K2's bucket sums there.
+        Returns {K11: results, K12: results}, plain_ms timed if plain."""
+        perm = ks & ((1 << sh) - 1)
+        levels = len(msm.accumulate_levels(pts.shape[2]))
+        runs_w = offs[:, 1:] - offs[:, :-1]
+        adds = int((runs_w - 1).clamp(min=0).sum())
+        loads = int(runs_w.sum())
+        res = {}
+        for k, kern, twin, prelude, rec, products in (
+                ("K11", msm.bucket_accumulate_words,
+                 msm.bucket_accumulate_words_plain, msm.point_rows,
+                 "WordRecords", adds * ADD),
+                ("K12", msm.bucket_accumulate_affine,
+                 msm.bucket_accumulate_affine_plain, msm.to_affine_words,
+                 "AffineRecords", adds * 8 * MUL + loads * MUL)):
+            rows_k = gather.gather_words(prelude(pts), perm)
+            b_k = kern(ks, offs, rows_k, nbw, sh)
+            b_p = twin(ks, offs, rows_k, nbw, sh)
+            torch.cuda.synchronize()
+            bw_k, bw_p = points_to_words(b_k), points_to_words(b_p)
+            require(torch.equal(b_k, b_p) and torch.equal(bw_k, bw_p),
+                    f"{k} differs from its plain version ({tag})")
+            require(same_points(b_k, ref),
+                    f"{k}'s bucket sums differ from K2's ({tag})")
+            v = res[k] = dict(
+                err=max_abs_err(bw_k, bw_p),
+                ms=cuda_ms(lambda: kern(ks, offs, rows_k, nbw, sh), 20),
+                dev_ms=device_ms(lambda: kern(ks, offs, rows_k, nbw, sh),
+                                 {rec: 1, "Pieces": levels - 1}, 20),
+                plain_ms=cuda_ms(lambda: twin(ks, offs, rows_k, nbw, sh), 2)
+                if plain else None,
+                lib_ms=None,
+                bound=bound_ms(ks.numel() * 8 + offs.numel() * 8
+                               + rows_k.numel() * 4 + b_k.numel() * 4,
+                               products),
+                rows=rows_k)
+            print(f"{k} {tag} ({pts.shape[2]} points, {ks.shape[0]} windows "
+                  f"x {nbw} buckets): kernel_ms={v['ms']:.4f} "
+                  f"device_only_ms={fmt_ms(v['dev_ms'])} "
+                  + (f"plain_ms={v['plain_ms']:.2f} " if plain else "")
+                  + f"bound_ms={v['bound'][0]:.5f} ({v['bound'][1]}) "
+                  f"kernel_launches_per_call={levels} max_abs_err={v['err']} "
+                  f"[{smi}]", flush=True)
+        return res
+
+    k1112 = k11_k12("nb=1024", points, keys, offsets, shift, nbk, buckets_k,
+                    plain=True)
+    results["K11"], results["K12"] = k1112["K11"], k1112["K12"]
+    k1112_eq = k11_k12("nb=1024 equal scalars", points, keys_eq, offsets_eq,
+                       shift_eq, nbk, buckets_eq)
     for k in ("K11", "K12"):
-        v = results[k]
-        print(f"{k} nb=1024 ({total} points, w = {wbits}): "
-              f"kernel_ms={v['ms']:.4f} device_only_ms={fmt_ms(v['dev_ms'])} "
-              f"plain_ms={v['plain_ms']:.2f} bound_ms={v['bound'][0]:.5f} "
-              f"({v['bound'][1]}) max_abs_err={v['err']} [{smi}]", flush=True)
+        ratio = k1112_eq[k]["ms"] / results[k]["ms"]
+        print(f"{k} skew: equal scalars {k1112_eq[k]['ms']:.4f} ms "
+              f"(device-only {fmt_ms(k1112_eq[k]['dev_ms'])}) against random "
+              f"{results[k]['ms']:.4f} ({fmt_ms(results[k]['dev_ms'])}): "
+              f"{ratio:.3f}x [{smi}]", flush=True)
+        require(ratio <= 3, f"{k} on equal scalars takes more than 3x its "
+                            "random-digit time")
+    k11_k12("nb=4096", points4, keys4, offsets4, shift4, nbk4, buckets4)
+    # w = 12: the top window holds no scalar bits, only the carry out of
+    # the one below, so half the points fall in its bucket 1
+    digits12 = sm.signed_digits(
+        bvd.batch_msm_scalars(params_t, bbB_t, n, m, lg), 12)
+    keys12, offsets12, shift12 = msm.sort_keys(digits12, 2048)
+    k11_k12("nb=1024 w=12", points, keys12, offsets12, shift12, 2048,
+            msm.bucket_accumulate(keys12, offsets12, points, 2048, shift12))
+    short_scratch([
+        (k, "_level_scratch",
+         lambda kern=kern, r=results[k]["rows"]: kern(keys, offsets, r, nbk,
+                                                     shift), kern)
+        for k, kern in (("K11", msm.bucket_accumulate_words),
+                        ("K12", msm.bucket_accumulate_affine))])
     print("config preludes nb=1024 (ms): " + json.dumps({
         "point_rows": round(cuda_ms(lambda: msm.point_rows(points), 5), 4),
         "to_affine_words": round(cuda_ms(lambda: msm.to_affine_words(points),
@@ -1384,9 +1445,9 @@ def main():
          "zkvm_tpu/kernels/pallas_msm.py:629"),
         ("K10", "gather_words", "gather_words.cu",
          "zkvm_tpu/kernels/pallas_msm.py:773; zkvm_tpu/kernels/pallas_msm.py:794"),
-        ("K11", "bucket_accumulate_words", "bucket_accumulate_words.cu",
+        ("K11", "bucket_accumulate_words", "bucket_accumulate.cu",
          "zkvm_tpu/kernels/pallas_msm.py:824"),
-        ("K12", "bucket_accumulate_affine", "bucket_accumulate_affine.cu",
+        ("K12", "bucket_accumulate_affine", "bucket_accumulate.cu",
          "zkvm_tpu/kernels/pallas_msm.py:952"),
         ("K5s", "small_scan", "small_scan.cu",
          "zkvm_tpu/kernels/pallas_msm.py:89 (seg_combine_lm in _bucket_totals'"

@@ -1,9 +1,10 @@
 """Builds the CUDA kernels at first use and binds them with ctypes.
 
-Each kernel's source (csrc/<name>.cu, which includes csrc/field25519.cuh
-and, for the lane-parallel kernels, csrc/lanes.cuh) compiles with its own
-nvcc process into a shared library with a plain C interface; build_all
-starts them all together.  Sources include no PyTorch header, so a build
+Each source (csrc/<source>.cu, which includes csrc/field25519.cuh and, for
+the lane-parallel kernels, csrc/lanes.cuh) compiles with its own nvcc
+process into a shared library with a plain C interface; build_all starts
+them all together.  A kernel's source is csrc/<name>.cu unless SOURCES
+names another: K11 and K12 are entries of K2's library.  Sources include no PyTorch header, so a build
 takes seconds, not the minutes a torch.utils.cpp_extension build of the
 same code takes.  Libraries land
 in kernels/build/ (ignored by git), named by a hash of their sources and
@@ -53,13 +54,23 @@ SIGNATURES = {
                                        _P]),
     "gather_words": ("zkvm_gather_words", [_P, _P, _P, _L, _I, _P]),
     "bucket_accumulate_words": ("zkvm_bucket_accumulate_words",
-                                [_P, _P, _P, _P, _L, _I, _I, _I, _P]),
+                                [_P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _P]),
     "bucket_accumulate_affine": ("zkvm_bucket_accumulate_affine",
-                                 [_P, _P, _P, _P, _L, _I, _I, _I, _P]),
+                                 [_P, _P, _P, _P, _P, _L, _L, _I, _I, _I,
+                                  _P]),
     "small_scan": ("zkvm_small_scan", [_P, _P, _P, _L, _I, _I, _I, _P]),
 }
 
+# kernels whose entry point lives in another kernel's source
+SOURCES = {"bucket_accumulate_words": "bucket_accumulate",
+           "bucket_accumulate_affine": "bucket_accumulate"}
+
 _loaded: dict[str, ctypes._CFuncPtr] = {}
+
+
+def source(name: str) -> str:
+    """The source (csrc/<source>.cu, its library) of kernel `name`."""
+    return SOURCES.get(name, name)
 
 
 def nvcc() -> str:
@@ -73,6 +84,8 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
+    """The library built from kernel `name`'s source."""
+    name = source(name)
     h = hashlib.sha256()
     for part in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(part.read_bytes())
@@ -81,11 +94,13 @@ def lib_path(name: str) -> Path:
 
 
 def build_all(names=None) -> dict[str, float]:
-    """Compile every missing library, one nvcc per source, all at once.
-    Returns {name: seconds} for those built; raises with the compiler's
-    output when one fails.  The ptxas report (registers, spills) of each
-    build is kept beside its library as <lib>.log."""
-    names = list(SIGNATURES) if names is None else list(names)
+    """Compile every missing library of the kernels `names` (default:
+    all), one nvcc per source, all at once.  Returns {source: seconds} for
+    those built; raises with the compiler's output when one fails.  The
+    ptxas report (registers, spills) of each build is kept beside its
+    library as <lib>.log."""
+    names = dict.fromkeys(source(n) for n in (
+        SIGNATURES if names is None else names))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()

@@ -11,24 +11,29 @@ small route, larger ones the bucket pipeline.  Both start from one sort:
      (torch.searchsorted).
 
 window_totals_large, the bucket pipeline:
-  2. K2 (csrc/bucket_accumulate.cu), or K11 or K12 (below): every bucket's
-     signed point sum.  K2 is load-balanced: a group of four lanes (one
-     point coordinate each, csrc/lanes.cuh) adds a fixed chunk of
-     ACCUMULATE_CHUNK sorted records, writes the runs that start and end
-     inside it, and passes the pieces of runs that cross its edges on as
-     a shorter sorted keyed sequence, which the same kernel reduces again
-     (accumulate_levels: 6 levels at 17,538 points).  Its records are
-     points in cached form, made once per point.  Its work does not
-     depend on how the digits fall: equal digits cost what random ones do;
+  2. K2 (csrc/bucket_accumulate.cu), or K11 or K12 (entries of the same
+     source): every bucket's signed point sum.  K2 is load-balanced: a
+     group of four lanes (one point coordinate each, csrc/lanes.cuh) adds
+     a fixed chunk of ACCUMULATE_CHUNK sorted records, writes the runs
+     that start and end inside it, and passes the pieces of runs that
+     cross its edges on as a shorter sorted keyed sequence, which the same
+     kernel reduces again (accumulate_levels: 6 levels at 17,538 points).
+     Its records are points in cached form.  K2 makes them once per point
+     and gathers them by index; K11 and K12 run the same levels with
+     another first-level loader, which decodes a gathered row and forms
+     its cached form as it reads it.  Their work does not depend on how
+     the digits fall: equal digits cost what random ones do;
   3. K3 (csrc/bucket_fold.cu): each window's Σ_b b · B_b: blocks of up
      to FOLD_GROUPS four-lane groups over runs of at most FOLD_GROUPS ·
      FOLD_RUN buckets (nb / 256 blocks a window), then one block per
      window over its blocks' sums (fold_shape); one launch where a window
      is one block (nb <= 256).
-The twins (bucket_accumulate_plain, bucket_fold_plain) run the kernels'
-additions in the kernels' association, vectorized, so that the card's
-results equal theirs bit for bit; K11 and K12 keep the per-bucket walk
-(_bucket_walk), so their sums equal K2's as points.
+The twins (bucket_accumulate_plain and its words and affine versions,
+bucket_fold_plain) run the kernels' additions in the kernels' association,
+vectorized, so that the card's results equal theirs bit for bit; the
+three bucket-sum twins share one level loop (_accumulate_plain) and differ
+in their loaders, as the kernels do.  K11's and K12's sums equal K2's as
+points (other limbs: the same points decoded from canonical words).
 
 window_totals_small, the small route (JAX _bucket_totals: an
 associative_scan over seg_combine_lm, the buckets read at the run ends, a
@@ -53,12 +58,12 @@ _bucket_totals_seq follows its environment switches (pallas_msm.py
   * sort (ZKVM_MSM_SORT=pallas): K9 (kernels/sort.py) sorts the keys;
   * gather (ZKVM_MSM_GATHER=pallas): the points are frozen to canonical
     words, K10 (kernels/gather.py) gathers them into sorted order, one
-    row per point, and K11 (csrc/bucket_accumulate_words.cu) decodes and
-    signs them while it sums the buckets;
+    row per point, and K11 decodes and signs them while it sums the
+    buckets;
   * affine (ZKVM_MSM_AFFINE=1, only when gather is off): the points are
     normalized to affine words by one batch inversion (to_affine_words),
-    K10 gathers those 16-word rows and K12
-    (csrc/bucket_accumulate_affine.cu) sums the buckets with mixed adds.
+    K10 gathers those 16-word rows and K12 sums the buckets, each affine
+    point read into cached form (y - x, y + x, 2d x y, 2).
 The JAX package caps its word gather at n <= 2^18 and its Pallas sort at
 2^18 keys for the TPU's VMEM; the port runs the configured kernel at
 every n.
@@ -87,9 +92,10 @@ from .words import field_words_to_limbs, limbs_to_field_words, points_to_words
 
 # K2 records per worker (a group of four lanes) on its first level and on
 # the later ones: the kernel's kChunk and kChunk1, which it is compiled
-# with.  These four size K2's and K3's scratch; each C entry refuses a
-# scratch shorter than its own constants need, and
-# tests/test_torch_scratch_contract.py holds them equal to the .cu sources'.
+# with (K11 and K12 run the same levels).  These four size the scratch of
+# K2, K11, K12 and K3; each C entry refuses a scratch shorter than its own
+# constants need, and tests/test_torch_scratch_contract.py holds them
+# equal to the .cu sources'.
 ACCUMULATE_CHUNK = 32
 ACCUMULATE_CHUNK1 = 8
 FOLD_RUN = 8           # K3 buckets per group in its first pass
@@ -107,14 +113,16 @@ SMALL_CLUSTER = 4
 # timings) on the default configuration at 4,096, 17,538 and 69,762
 # points; K2 and K3 do work there that does not depend on how the digits
 # fall, and the widths 9 to 13 lie within a few per cent of each other.
-# 11 also suits K11 and K12, which still give each bucket one thread: at
-# 12 or 14 the top window holds no scalar bits and receives the carry out
-# of the window below, putting half the points in bucket 1, one thread's
-# serial work (over 17,538 points window_totals took 1.5 ms at w = 11
-# against 66 ms at w = 12 with such an accumulator, on an H100 SXM at
-# 700 W).  Above 387,493 points the table keeps the choices of the first
-# design's cost model (15, then 16 from 4,716,319 points), which are not
-# measured on the card.
+# K11 and K12 run K2's levels too, so no configuration gives a bucket one
+# thread any more: at 12 or 14 the top window holds no scalar bits and
+# receives the carry out of the window below, putting half the points in
+# bucket 1, which the one-thread-per-bucket accumulators of the first
+# designs walked in a row (over 17,538 points window_totals took 1.5 ms
+# at w = 11 against 66 ms at w = 12 with such an accumulator, on an H100
+# SXM at 700 W); chip_smoke.py times K11 and K12 at w = 12 beside 11.
+# Above 387,493 points the table keeps the choices of the first design's
+# cost model (15, then 16 from 4,716,319 points), which are not measured
+# on the card.
 #
 # The small route takes w = 8 (SMALL_WBITS): chip_smoke.py sweeps K5s + K3
 # over w = 6 to 10 at 1,055, 1,282 and 2,048 points (PERF.md section 5).
@@ -156,33 +164,16 @@ class MsmConfig:
 
 
 # ------------------------------------------------------------ K2, K11, K12
-def _bucket_walk(keys, offsets, nb: int, shift: int, load, first, add):
-    """The bucket-sum twins' shared loop, vectorized over buckets with one
-    step per position in the runs, the kernels' adds in their order:
-    load(window, position, point index, negate) gives the point at a
-    sorted position, first(p) a run's starting value, add(acc, p) the
-    next sum; an empty bucket stays the identity."""
-    nw, n = keys.shape
-    starts = offsets[:, :-1].reshape(-1)
-    lens = offsets[:, 1:].reshape(-1) - starts
-    rows = torch.arange(nw, device=keys.device).repeat_interleave(nb)
-    acc = list(F.identity_like(torch.zeros((F.NL, nw * nb), dtype=torch.int64,
-                                           device=keys.device)))
-    for r in range(int(lens.max()) if lens.numel() else 0):
-        sel = (lens > r).nonzero().squeeze(1)
-        w, pos = rows[sel], starts[sel] + r
-        key = keys[w, pos]
-        p = load(w, pos, key & ((1 << shift) - 1), ((key >> shift) & 1) == 1)
-        p = first(p) if r == 0 else add(tuple(c[:, sel] for c in acc), p)
-        for c, v in zip(acc, p):
-            c[:, sel] = v
-    return F.pack_points(acc)
-
-
 def _signed(neg, p):
     """(X, Y, Z, T) with X and T negated where neg."""
     X, Y, Z, T = p
     return F.select(neg, F.neg(X), X), Y, Z, F.select(neg, F.neg(T), T)
+
+
+def _signed_cached(neg, c):
+    """-P's cached form where neg, from P's: (Y + X, Y - X, -2d T, 2 Z)."""
+    return (F.select(neg, c[1], c[0]), F.select(neg, c[0], c[1]),
+            F.select(neg, F.neg(c[2]), c[2]), c[3])
 
 
 def _lane_add(p, q):
@@ -203,38 +194,75 @@ def accumulate_levels(n: int, chunk: int = ACCUMULATE_CHUNK,
     return sizes
 
 
-def _accumulate_scratch(nw: int, n: int, chunk: int, chunk1: int) -> int:
-    """int32 words of K2's scratch: the points' cached forms (40 n), then
+def _level_scratch(nw: int, n: int, chunk: int, chunk1: int) -> int:
+    """int32 words of the levels' scratch (K11's and K12's whole scratch):
     two buffers of 41 nw N (keys, then points) for levels 1 and 2, the
     later levels reusing them in turn."""
     sizes = accumulate_levels(n, chunk, chunk1) + [0, 0]
-    return 40 * n + 41 * nw * (sizes[1] + sizes[2])
+    return 41 * nw * (sizes[1] + sizes[2])
 
 
-def bucket_accumulate_plain(keys, offsets, points, nb: int, shift: int,
-                            chunk: int = ACCUMULATE_CHUNK,
-                            chunk1: int = ACCUMULATE_CHUNK1):
-    """Plain twin of K2: the same chunked levels over records in cached form
-    (csrc/bucket_accumulate.cu), vectorized over every (window, chunk)
-    worker, with the kernel's additions in its association.  offsets are
-    not read: a bucket no run reaches keeps the identity, as the kernel
-    writes it from offsets."""
+def _accumulate_scratch(nw: int, n: int, chunk: int, chunk1: int) -> int:
+    """int32 words of K2's scratch: the points' cached forms (40 n), then
+    the levels' buffers."""
+    return 40 * n + _level_scratch(nw, n, chunk, chunk1)
+
+
+def _limb_records(keys, points, shift: int):
+    """K2's first-level loader: load(rows, rc) gives the cached forms of the
+    points at sorted positions (rows, rc), -P's where the sign bit is set,
+    gathered by index from every point's cached form, made once."""
+    cpts = cached(F.unpack_points(points))
+
+    def load(rows, rc):
+        key = keys[rows, rc]
+        return _signed_cached(((key >> shift) & 1) == 1,
+                              tuple(x[:, key & ((1 << shift) - 1)]
+                                    for x in cpts))
+    return load
+
+
+def _word_records(keys, rows_in, shift: int):
+    """K11's: the points decoded from the gathered word rows (nw, n, 32)
+    at (rows, rc), then their cached forms, signed."""
+    def load(rows, rc):
+        words = rows_in[rows, rc].permute(2, 0, 1)
+        p = tuple(field_words_to_limbs(words[8 * c: 8 * c + 8])
+                  for c in range(4))
+        return _signed_cached(((keys[rows, rc] >> shift) & 1) == 1,
+                              cached(p))
+    return load
+
+
+def _affine_records(keys, rows_in, shift: int):
+    """K12's: the affine points (x, y) decoded from the gathered rows
+    (nw, n, 16) at (rows, rc), in cached form (y - x, y + x, 2d (x y), 2),
+    signed."""
+    def load(rows, rc):
+        words = rows_in[rows, rc].permute(2, 0, 1)
+        x, y = field_words_to_limbs(words[:8]), field_words_to_limbs(words[8:])
+        two = torch.zeros_like(x)
+        two[0] = 2
+        return _signed_cached(
+            ((keys[rows, rc] >> shift) & 1) == 1,
+            (F.sub(y, x), F.add(y, x),
+             F.mul(F.mul(x, y), F.const(EDWARDS_D2, x)), two))
+    return load
+
+
+def _accumulate_plain(keys, nb: int, shift: int, load, chunk: int,
+                      chunk1: int):
+    """The bucket-sum kernels' levels (csrc/bucket_accumulate.cu),
+    vectorized over every (window, chunk) worker, with the kernels'
+    additions in their association; load is the first level's loader
+    (_limb_records, _word_records, _affine_records).  A bucket no run
+    reaches keeps the identity, as the kernels write it from offsets."""
     nw, n = keys.shape
     dev = keys.device
-    cpts = cached(F.unpack_points(points))
     out = [c.clone() for c in F.identity_like(
         torch.zeros((F.NL, nw * nb), dtype=torch.int64, device=dev))]
     rows = torch.arange(nw, device=dev).unsqueeze(1)
     rkey = keys >> (shift + 1)                    # the records' buckets
-
-    def load(rc):
-        """The cached forms at (row, rc), -P's where the sign bit is set."""
-        key = keys[rows, rc]
-        neg = ((key >> shift) & 1) == 1
-        c = tuple(x[:, key & ((1 << shift) - 1)] for x in cpts)
-        return (F.select(neg, c[1], c[0]), F.select(neg, c[0], c[1]),
-                F.select(neg, F.neg(c[2]), c[2]), c[3])
-
     N = n
     while True:
         K = -(-N // chunk)
@@ -260,7 +288,8 @@ def bucket_accumulate_plain(keys, offsets, points, nb: int, shift: int,
             kn = torch.where(valid & (r + 1 < e), rkey[:, (r + 1).clamp(
                 max=N - 1)], -1)
             real = kr > 0
-            q = tuple(F.select(real, x, i_) for x, i_ in zip(load(rc), c_ident))
+            q = tuple(F.select(real, x, i_)
+                      for x, i_ in zip(load(rows, rc), c_ident))
             restart = (kr != before) if i else torch.ones_like(valid)
             acc = add_cached(tuple(F.select(restart, i_, a)
                                    for i_, a in zip(ident, acc)), q)
@@ -285,10 +314,52 @@ def bucket_accumulate_plain(keys, offsets, points, nb: int, shift: int,
                           for a, b in zip(c_first, c_last))
         rkey = torch.stack([lo, hi], dim=2).reshape(nw, Nn)
 
-        def load(rc, level_pts=level_pts):
+        def load(rows, rc, level_pts=level_pts):
             return tuple(x[:, rows, rc] for x in level_pts)
         N = Nn
         chunk = chunk1
+
+
+def bucket_accumulate_plain(keys, offsets, points, nb: int, shift: int,
+                            chunk: int = ACCUMULATE_CHUNK,
+                            chunk1: int = ACCUMULATE_CHUNK1):
+    """Plain twin of K2: the levels over the points' cached forms, gathered
+    by index.  offsets are not read (nor by the other twins)."""
+    return _accumulate_plain(keys, nb, shift,
+                             _limb_records(keys, points, shift), chunk,
+                             chunk1)
+
+
+def bucket_accumulate_words_plain(keys, offsets, rows, nb: int, shift: int):
+    """Plain twin of K11: K2's levels over points decoded from word rows."""
+    return _accumulate_plain(keys, nb, shift, _word_records(keys, rows, shift),
+                             ACCUMULATE_CHUNK, ACCUMULATE_CHUNK1)
+
+
+def bucket_accumulate_affine_plain(keys, offsets, rows, nb: int, shift: int):
+    """Plain twin of K12: K2's levels over affine points in cached form."""
+    return _accumulate_plain(keys, nb, shift,
+                             _affine_records(keys, rows, shift),
+                             ACCUMULATE_CHUNK, ACCUMULATE_CHUNK1)
+
+
+def _launch_accumulate(fn, name, keys, offsets, records, shape, scratch_len,
+                       nb, shift):
+    """One C call of a bucket-sum kernel (K2, K11 or K12) on CUDA tensors:
+    records (K2's points or K10's rows) of `shape`, a scratch of
+    scratch_len int32.  Counts on fn.launches."""
+    nw, n = keys.shape
+    _build.check_cuda(keys, torch.int64, (nw, n), f"{name} keys")
+    _build.check_cuda(offsets, torch.int64, (nw, nb + 1), f"{name} offsets")
+    _build.check_cuda(records, torch.int32, shape, f"{name} records")
+    out = torch.empty((4, F.NL, nw * nb), dtype=torch.int32,
+                      device=keys.device)
+    scratch = torch.empty((scratch_len,), dtype=torch.int32,
+                          device=keys.device)
+    _build.launch(name, keys, offsets, records, out, scratch, scratch.numel(),
+                  n, nw, nb, shift)
+    fn.launches += 1
+    return out
 
 
 def bucket_accumulate(keys, offsets, points, nb: int, shift: int):
@@ -298,88 +369,26 @@ def bucket_accumulate(keys, offsets, points, nb: int, shift: int):
     if keys.device.type == "cpu":
         return bucket_accumulate_plain(keys, offsets, points, nb, shift)
     nw, n = keys.shape
-    _build.check_cuda(keys, torch.int64, (nw, n), "bucket_accumulate keys")
-    _build.check_cuda(offsets, torch.int64, (nw, nb + 1),
-                      "bucket_accumulate offsets")
-    _build.check_cuda(points, torch.int32, (4, F.NL, n),
-                      "bucket_accumulate points")
-    out = torch.empty((4, F.NL, nw * nb), dtype=torch.int32,
-                      device=keys.device)
-    scratch = torch.empty((_accumulate_scratch(nw, n, ACCUMULATE_CHUNK,
-                                               ACCUMULATE_CHUNK1),),
-                          dtype=torch.int32, device=keys.device)
-    _build.launch("bucket_accumulate", keys, offsets, points, out, scratch,
-                  scratch.numel(), n, nw, nb, shift)
-    bucket_accumulate.launches += 1
-    return out
+    return _launch_accumulate(
+        bucket_accumulate, "bucket_accumulate", keys, offsets, points,
+        (4, F.NL, n), _accumulate_scratch(nw, n, ACCUMULATE_CHUNK,
+                                          ACCUMULATE_CHUNK1), nb, shift)
 
 
 bucket_accumulate.launches = 0
 
 
-def _row_coord(rows, w, pos, c: int):
-    """Limbs of coordinate c of the gathered rows at (w, pos), (10, k)."""
-    return field_words_to_limbs(rows[w, pos, 8 * c: 8 * c + 8].T)
-
-
-def bucket_accumulate_words_plain(keys, offsets, rows, nb: int, shift: int):
-    """Plain twin of K11: K2's adds on points decoded from word rows."""
-    return _bucket_walk(
-        keys, offsets, nb, shift,
-        lambda w, pos, idx, neg: _signed(
-            neg, tuple(_row_coord(rows, w, pos, c) for c in range(4))),
-        lambda p: p, F.point_add)
-
-
-def _affine_load(rows, w, pos, neg):
-    """(x, y, xy) of the affine rows at (w, pos), x and xy negated where
-    neg (K12's load)."""
-    x, y = _row_coord(rows, w, pos, 0), _row_coord(rows, w, pos, 1)
-    xy = F.mul(x, y)
-    return F.select(neg, F.neg(x), x), y, F.select(neg, F.neg(xy), xy)
-
-
-def madd_affine(acc, p):
-    """acc + (x, y, 1, xy) by add-2008-hwcd-3 with Z2 = 1 (K12's add, the
-    JAX package's _seq_scan_awords_kernel formula)."""
-    X1, Y1, Z1, T1 = acc
-    x, y, xy = p
-    A = F.mul(F.sub(Y1, X1), F.sub(y, x))
-    B = F.mul(F.add(Y1, X1), F.add(y, x))
-    C = F.mul(F.mul(T1, F.const(EDWARDS_D2, T1)), xy)
-    D = F.add(Z1, Z1)
-    E, Fv, G, H = F.sub(B, A), F.sub(D, C), F.add(D, C), F.add(B, A)
-    return F.mul(E, Fv), F.mul(G, H), F.mul(Fv, G), F.mul(E, H)
-
-
-def bucket_accumulate_affine_plain(keys, offsets, rows, nb: int, shift: int):
-    """Plain twin of K12: the same mixed adds in the same order."""
-    return _bucket_walk(
-        keys, offsets, nb, shift,
-        lambda w, pos, idx, neg: _affine_load(rows, w, pos, neg),
-        lambda p: (p[0], p[1], F.identity_like(p[0])[2], p[2]), madd_affine)
-
-
-def _launch_rows_kernel(fn, name, keys, offsets, rows, nb, shift, words):
-    nw, n = keys.shape
-    _build.check_cuda(keys, torch.int64, (nw, n), f"{name} keys")
-    _build.check_cuda(offsets, torch.int64, (nw, nb + 1), f"{name} offsets")
-    _build.check_cuda(rows, torch.int32, (nw, n, words), f"{name} rows")
-    out = torch.empty((4, F.NL, nw * nb), dtype=torch.int32,
-                      device=keys.device)
-    _build.launch(name, keys, offsets, rows, out, n, nw, nb, shift)
-    fn.launches += 1
-    return out
-
-
 def bucket_accumulate_words(keys, offsets, rows, nb: int, shift: int):
     """As bucket_accumulate, from rows (nw, n, 32) int32: each window's
-    canonical point words in sorted order (K10's output)."""
+    canonical point words in sorted order (K10's output).  One call
+    launches len(accumulate_levels(n)) kernels."""
     if keys.device.type == "cpu":
         return bucket_accumulate_words_plain(keys, offsets, rows, nb, shift)
-    return _launch_rows_kernel(bucket_accumulate_words,
-                               "bucket_accumulate_words", keys, offsets, rows,
-                               nb, shift, 32)
+    nw, n = keys.shape
+    return _launch_accumulate(
+        bucket_accumulate_words, "bucket_accumulate_words", keys, offsets,
+        rows, (nw, n, 32), _level_scratch(nw, n, ACCUMULATE_CHUNK,
+                                          ACCUMULATE_CHUNK1), nb, shift)
 
 
 bucket_accumulate_words.launches = 0
@@ -387,12 +396,15 @@ bucket_accumulate_words.launches = 0
 
 def bucket_accumulate_affine(keys, offsets, rows, nb: int, shift: int):
     """As bucket_accumulate, from rows (nw, n, 16) int32: each window's
-    affine (x, y) words in sorted order.  Equal to K2's sums as points."""
+    affine (x, y) words in sorted order.  Equal to K2's sums as points.
+    One call launches len(accumulate_levels(n)) kernels."""
     if keys.device.type == "cpu":
         return bucket_accumulate_affine_plain(keys, offsets, rows, nb, shift)
-    return _launch_rows_kernel(bucket_accumulate_affine,
-                               "bucket_accumulate_affine", keys, offsets,
-                               rows, nb, shift, 16)
+    nw, n = keys.shape
+    return _launch_accumulate(
+        bucket_accumulate_affine, "bucket_accumulate_affine", keys, offsets,
+        rows, (nw, n, 16), _level_scratch(nw, n, ACCUMULATE_CHUNK,
+                                          ACCUMULATE_CHUNK1), nb, shift)
 
 
 bucket_accumulate_affine.launches = 0

@@ -14,10 +14,15 @@ stages in ms; and under "small_route" R1CS Verifier.verify's host_s and
 device_s on the committed Cloak 4x4 fixture for each of `reps` calls, the
 Cloak's window_totals_small and whole split_msm_check in ms, and
 window_totals_small against window_totals_large on the same points and
-digits at 1,282 and 2,048 points (w = 8).  Every ms is by CUDA events, the
-mean of 10 calls after one.  To compare a parent with a change, run
-parent, change, change, parent in one session.  Exits non-zero without a
-CUDA device.
+digits at 1,282 and 2,048 points (w = 8); and under "bucket_sums" the
+bucket sums of the gather and affine configurations (K11
+bucket_accumulate_words, K12 bucket_accumulate_affine) on the batch's MSM,
+on its random digits and with every scalar equal (each window one run of
+all the points).  Every ms is by CUDA events, the mean of 10 calls after
+one (3 on equal scalars, where an accumulator that gives each bucket one
+thread walks a window's run in a row).  To compare a parent with a change,
+run parent, change, change, parent in one session.  Exits non-zero without
+a CUDA device.
 """
 
 import argparse
@@ -117,9 +122,32 @@ def main():
     stages_ms = {k: cuda_ms(f) for k, f in stages.items()}
     print(json.dumps({"tree": tree, "card": smi, "nb": nb, "wbits": wbits,
                       "batch_verify": calls, "stages_ms": stages_ms,
-                      "small_route": small_route(dev, args.reps)}),
+                      "small_route": small_route(dev, args.reps),
+                      "bucket_sums": bucket_sums(points, digits, nbk)}),
           flush=True)
     return 0
+
+
+def bucket_sums(points, digits, nb):
+    """K11's and K12's ms on the MSM's random digits and on equal scalars
+    (module note), through their entry points."""
+    from zkvm_tpu_torch.kernels import gather, msm
+    n, nw = digits.shape
+    row = int(np.random.default_rng(2028).integers(0, n))
+    out = {}
+    for tag, dg, reps in (
+            ("random", digits, 10),
+            ("equal scalars", digits[row:row + 1].expand(n, nw).contiguous(),
+             3)):
+        keys, offsets, shift = msm.sort_keys(dg, nb)
+        perm = keys & ((1 << shift) - 1)
+        for k, fn, prelude in (
+                ("K11", msm.bucket_accumulate_words, msm.point_rows),
+                ("K12", msm.bucket_accumulate_affine, msm.to_affine_words)):
+            rows = gather.gather_words(prelude(points), perm)
+            out[f"{k} {tag}"] = cuda_ms(
+                lambda: fn(keys, offsets, rows, nb, shift), reps)
+    return out
 
 
 def small_route(dev, reps):

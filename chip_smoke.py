@@ -83,7 +83,20 @@
    m = 32 proof through verify_multiple (accepted, its t_x + 1 copy
    rejected); TorchEngine.msm on 4,096 points, checked by msm_is_identity,
    then window_totals by width on those points;
-10. prints the kernels line (every launch count must be > 0) and, last,
+10. with every launch count set to 0, runs the ZkVM transaction path on
+   the committed block (zkvm_tpu_torch/data/txs_block256.bin: 192 issues
+   and 64 payments, and one transaction each for taproot call, signid,
+   signtag, unblind, borrow/retire and fee): verify_tx on one issue, one
+   payment and each coverage transaction (its txid must equal the JAX
+   verifier's in the fixture; a flipped proof byte and a flipped
+   signature byte must each raise); fused_verify_tx_batch on the 256
+   (one MSM, K1, K2/K3, K4; the 256 MuSig aggregated_key MSMs on the
+   small route) with every txid equal, tx 3's proof tampered (the
+   attribution must name tx 3) and tx 255's tampered with attribution
+   off; verify_tx_batch job by job with the same verdicts; and the fused
+   block under the sort + gather and affine configurations; prints
+   host_s, device_s, tx/s and the MSM's size, width and route;
+11. prints the kernels line (every launch count must be > 0) and, last,
    the device line.
 
 Range proofs come from the committed fixtures in zkvm_tpu_torch/data,
@@ -312,19 +325,24 @@ def main():
     from zkvm_tpu_torch.kernels import field as F
     from zkvm_tpu_torch.kernels import scalarmod as sm
     from zkvm_tpu_torch.kernels.engine import TorchEngine
-    from zkvm_tpu_torch.kernels.frontend import (pack_words,
+    from zkvm_tpu_torch.kernels.frontend import (combine_window_totals,
+                                                 pack_words,
                                                  window_totals_from_words)
     from zkvm_tpu_torch.kernels.words import (encoding_words, points_to_words,
                                               scalar_words, to_device,
                                               words_to_points)
     from zkvm_tpu_torch.constants import L, P
     from zkvm_tpu_torch.oracle.ristretto import RistrettoPoint
-    from zkvm_tpu_torch.proofs.errors import VerificationError
+    from zkvm_tpu_torch.parallel.tx_batch import (fused_verify_tx_batch,
+                                                  verify_tx_batch)
+    from zkvm_tpu_torch.proofs.errors import ProofError, VerificationError
     from zkvm_tpu_torch.proofs.generators import BulletproofGens, PedersenGens
     from zkvm_tpu_torch.proofs.r1cs import R1CSProof
     from zkvm_tpu_torch.proofs.rangeproof import (RangeProof, batch_verify,
                                                   batch_verification_job)
     from zkvm_tpu_torch.proofs.transcript import ProofTranscript
+    from zkvm_tpu_torch.vm import Tx, verify_tx
+    from zkvm_tpu_torch.vm.errors import VMError
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1418,10 +1436,134 @@ def main():
           + json.dumps({c: round(cuda_ms(lambda: window_totals_from_words(
               pw_t, sw_t, m_w, cfg), 3), 4) for c, cfg in configs.items()})
           + f" [{smi}]", flush=True)
-    launches = [sum(c) for c in zip(range_path, r1cs_path, entry, engine_path)]
+    # ---------------------------------------------------------- phase 10
+    # the ZkVM transaction path on the committed block
+    # (zkvm_tpu_torch/data/txs_block256.bin, made and verified by the JAX
+    # package's prover and verifier, whose txids it holds)
+    t_phase = time.perf_counter()
+    cap, tx_recs = fixture.load_txs()
+    t = time.perf_counter()
+    tx_bp = BulletproofGens(cap)
+    bvd.static_gens_words(tx_bp, pc, cap, 1, dev)   # resident G/H columns
+    print(f"tx generators (capacity {cap}) and their resident words: "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+    block = tx_recs[:256]
+    block_txs = [Tx.from_bytes(r.wire) for r in block]
+    block_ids = [r.txid for r in block]
+
+    def rejected(fn, what):
+        """fn() must raise a verifier's rejection (a device error is not
+        one, and fails the run); -> its type and message."""
+        try:
+            fn()
+        except (ProofError, VMError, ValueError) as e:
+            return f"{type(e).__name__}: {e}"
+        raise RuntimeError(f"chip smoke failed: {what} was accepted")
+
+    def tampered_block(i, part="proof"):
+        bad = list(block_txs)
+        bad[i] = Tx.from_bytes(fixture.tampered_tx(block[i].wire, part))
+        return bad
+
+    reset()
+    # verify_tx on one issue, one payment and each coverage transaction,
+    # each also with a flipped proof byte and a flipped signature byte
+    for rec in [block[0], block[192]] + tx_recs[256:]:
+        timings = {}
+        vtx = verify_tx(Tx.from_bytes(rec.wire), tx_bp, device=dev,
+                        timings=timings)
+        require(vtx.id == rec.txid, f"verify_tx {rec.kind}: txid differs "
+                                    "from the JAX verifier's")
+        wall = (timings["host_s"] + timings["device_s"]
+                + timings["aggregated_key_s"])
+        print(f"verify_tx {rec.kind} accept: host_s={timings['host_s']:.4f} "
+              f"device_s={timings['device_s']:.4f} "
+              f"aggregated_key_s={timings['aggregated_key_s']:.4f} "
+              f"msm_size={timings['msm_size']} tx_per_s={1 / wall:.1f} "
+              f"[{smi}]", flush=True)
+        for part in ("proof", "signature"):
+            why = rejected(lambda: verify_tx(
+                Tx.from_bytes(fixture.tampered_tx(rec.wire, part)), tx_bp,
+                device=dev), f"verify_tx {rec.kind} with a flipped {part} byte")
+            print(f"verify_tx {rec.kind} {part} tampered: {why}", flush=True)
+
+    # the fused block: one MSM for the 256 transactions
+    timings = {}
+    ids = [v.id for v in fused_verify_tx_batch(block_txs, tx_bp, device=dev,
+                                               timings=timings)]
+    require(ids == block_ids, "the fused block's txids differ from the "
+                              "JAX verifier's")
+    wall = timings["host_s"] + timings["device_s"] + timings["aggregated_key_s"]
+    require(timings["aggregated_keys"] == 256 and timings["route"] == "large",
+            f"the fused block's shape: {timings}")
+    print(f"fused block of 256 accept: host_s={timings['host_s']:.3f} "
+          f"device_s={timings['device_s']:.4f} aggregated_key_s="
+          f"{timings['aggregated_key_s']:.3f} ({timings['aggregated_keys']} "
+          f"MSMs, {1e3 * timings['aggregated_key_s'] / 256:.3f} ms each) "
+          f"msm_size={timings['msm_size']} wbits={timings['wbits']} "
+          f"route={timings['route']} tx_per_s={256 / wall:.1f} "
+          f"device_only_tx_per_s={256 / timings['device_s']:.1f} [{smi}]",
+          flush=True)
+    why = rejected(lambda: fused_verify_tx_batch(tampered_block(3), tx_bp,
+                                                 device=dev),
+                   "the fused block with tx 3's proof tampered")
+    require("(tx 3)" in why, f"the attribution did not name tx 3: {why}")
+    print(f"fused block, tx 3 tampered, attribution on: {why}", flush=True)
+    why = rejected(lambda: fused_verify_tx_batch(
+        tampered_block(255), tx_bp, attribute_failures=False, device=dev),
+        "the fused block with tx 255's proof tampered")
+    print(f"fused block, tx 255 tampered, attribution off: {why}", flush=True)
+
+    # job by job: one MSM per transaction and one for every point op
+    t = time.perf_counter()
+    ids = [v.id for v in verify_tx_batch(block_txs, tx_bp, device=dev)]
+    require(ids == block_ids, "verify_tx_batch's txids differ")
+    print(f"verify_tx_batch of 256 accept: {time.perf_counter() - t:.3f} s "
+          f"[{smi}]", flush=True)
+    for i in (3, 255):
+        why = rejected(lambda: verify_tx_batch(tampered_block(i), tx_bp,
+                                               device=dev),
+                       f"verify_tx_batch with tx {i}'s proof tampered")
+        require(f"(job {i})" in why, f"verify_tx_batch did not name job {i}")
+        print(f"verify_tx_batch, tx {i} tampered: {why}", flush=True)
+
+    # the fused block under the other two MSM configurations
+    for c in ("gather+sort", "affine"):
+        tm = {}
+        ids = [v.id for v in fused_verify_tx_batch(
+            block_txs, tx_bp, engine=TorchEngine(dev, config=configs[c]),
+            timings=tm)]
+        require(ids == block_ids, f"the fused block under {c} rejected")
+        print(f"fused block under {c}: accept, host_s={tm['host_s']:.3f} "
+              f"device_s={tm['device_s']:.4f} [{smi}]", flush=True)
+    tx_path = counts()
+    require(all(tx_path[i] > 0 for i in (0, 1, 2, 3, 12)),
+            f"the tx path skipped a kernel: {tx_path}")
+    print(f"tx path launches: {tx_path}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    # one aggregated_key round trip (TorchEngine.msm, two keys) by stage,
+    # outside the counted run: the window totals on the card
+    # (synchronised), then their fetch and Horner's rule in host Python
+    # (frontend.combine_window_totals)
+    ak_eng, ak_pts = TorchEngine(dev), tx_bp.G(2, 1)
+    ak_ks = [int.from_bytes(rs.bytes(32), "little") % L for _ in ak_pts]
+    t = time.perf_counter()
+    for _ in range(20):
+        ak_totals, ak_w = ak_eng.window_totals(ak_ks, ak_pts)
+        torch.cuda.synchronize()
+    ak_card = (time.perf_counter() - t) / 20
+    t = time.perf_counter()
+    for _ in range(20):
+        combine_window_totals(ak_totals, ak_w)
+    ak_host = (time.perf_counter() - t) / 20
+    print(f"aggregated_key MSM (2 points, w = {ak_w}) by stage, mean of 20: "
+          f"window totals on the card {1e3 * ak_card:.3f} ms, fetch + host "
+          f"Horner {1e3 * ak_host:.3f} ms [{smi}]", flush=True)
+    launches = [sum(c) for c in zip(range_path, r1cs_path, entry, engine_path,
+                                    tx_path)]
     require(all(c > 0 for c in launches), f"a kernel never launched: {launches}")
 
-    # ---------------------------------------------------------- phase 10
+    # ---------------------------------------------------------- phase 11
     table = [  # key, name, source, replaced TPU kernel(s)
         ("K1", "ristretto_decode", "decompress.cu",
          "zkvm_tpu/kernels/pallas_decompress.py:207"),

@@ -13,11 +13,13 @@ from zkvm_tpu_torch import fixture
 from zkvm_tpu_torch.kernels import (combine, decompress, gather, msm,
                                     pointwise, sort)
 from zkvm_tpu_torch.kernels.engine import TorchEngine
+from zkvm_tpu_torch.parallel.tx_batch import fused_verify_tx_batch
 from zkvm_tpu_torch.proofs.engine import get_engine
 from zkvm_tpu_torch.proofs.generators import BulletproofGens, PedersenGens
 from zkvm_tpu_torch.proofs.r1cs import R1CSProof
 from zkvm_tpu_torch.proofs.rangeproof import RangeProof, batch_verify
 from zkvm_tpu_torch.proofs.transcript import ProofTranscript
+from zkvm_tpu_torch.vm import Tx, verify_tx
 
 ROOT = Path(zkvm_tpu_torch.__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "zkvm_tpu")
@@ -54,6 +56,12 @@ def test_entry_point_without_device_needs_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         fixture.r1cs_verifier(fx).verify(R1CSProof.from_bytes(fx.wire),
                                          PedersenGens(), BulletproofGens(1))
+    _, recs = fixture.load_txs()
+    txs = [Tx.from_bytes(r.wire) for r in recs[:2]]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        verify_tx(txs[0], BulletproofGens(1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fused_verify_tx_batch(txs, BulletproofGens(1))
 
 
 def test_engine_entry_points_without_device_need_cuda():

@@ -1,9 +1,9 @@
 """Curve, scalar and protocol constants of the PyTorch/CUDA package.
 
-A copy of what range-proof and R1CS verification need from the JAX
-package's constants module (the two packages share no code).  Field
-constants are computed from first principles at import time; the
-Ristretto basepoint encoding is pinned as a known-answer check.
+A copy of what range-proof, R1CS and ZkVM transaction verification need
+from the JAX package's constants module (the two packages share no
+code).  Field constants are computed from first principles at import
+time; the Ristretto basepoint encoding is pinned as a known-answer check.
 """
 
 # Field GF(p), p = 2^255 - 19
@@ -60,3 +60,13 @@ LABEL_R1CS = b"r1cs v1"
 LABEL_R1CS_1PHASE = b"r1cs-1phase"
 LABEL_R1CS_2PHASE = b"r1cs-2phase"
 GENERATORS_CHAIN_LABEL = b"GeneratorsChain"
+
+# ZkVM transcript labels (slingshot/zkvm/src/{vm.rs,tx.rs,predicate.rs,contract.rs})
+LABEL_ZKVM_R1CS = b"ZkVM.r1cs"
+LABEL_ZKVM_TXID = b"ZkVM.txid"
+LABEL_ZKVM_TAPROOT = b"ZkVM.taproot"
+LABEL_ZKVM_CONTRACTID = b"ZkVM.contractid"
+
+# starsig / musig (slingshot/{starsig,musig})
+LABEL_STARSIG = b"Starsig.v1"
+LABEL_MUSIG = b"Musig.aggregated-key"

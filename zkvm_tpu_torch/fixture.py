@@ -16,6 +16,12 @@ parameters, u32 commitment count, the commitments (32 bytes each), then
 the proof's wire bytes to the end.  Circuits: "cloak" with parameters
 (inputs, outputs, range bits) over allocated values, and "range" with
 (bits,), one range gadget per committed value.
+
+ZkVM transactions (little-endian; tests/test_torch_tx_fixture.py makes
+them): magic b"ZKTX0001", u32 generator capacity, u32 count, then per
+transaction a u8 kind tag (an index into TX_KINDS), u32 wire length, the
+wire bytes (Tx.to_bytes()) and the 32-byte txid the JAX package's
+verifier computed.
 """
 
 from __future__ import annotations
@@ -32,6 +38,10 @@ R1CS_RANGE = DATA / "r1cs_range512x64.bin"
 MAGIC = b"ZKRP0001"
 MIXED_MAGIC = b"ZKRPM001"
 R1CS_MAGIC = b"ZKR1CS01"
+TXS_BLOCK = DATA / "txs_block256.bin"
+TX_MAGIC = b"ZKTX0001"
+TX_KINDS = ("issue", "payment", "call", "signid", "signtag", "unblind",
+            "borrow_retire", "fee")
 
 
 def wire_len(n: int, m: int) -> int:
@@ -174,3 +184,65 @@ def r1cs_verifier(fx: R1CSFixture):
     else:
         raise ValueError(f"unknown circuit {fx.circuit!r}")
     return verifier
+
+
+# ------------------------------------------------------------------- ZkVM
+@dataclass
+class TxRecord:
+    kind: str
+    wire: bytes
+    txid: bytes
+
+
+def dump_txs(path, gens_capacity: int, records: list[TxRecord]) -> None:
+    blob = bytearray(TX_MAGIC + struct.pack("<II", gens_capacity,
+                                            len(records)))
+    for rec in records:
+        if len(rec.txid) != 32:
+            raise ValueError("a txid is 32 bytes")
+        blob += struct.pack("<BI", TX_KINDS.index(rec.kind), len(rec.wire))
+        blob += rec.wire + rec.txid
+    Path(path).write_bytes(bytes(blob))
+
+
+def load_txs(path=TXS_BLOCK) -> tuple[int, list[TxRecord]]:
+    """-> (generator capacity, records in file order)."""
+    data = Path(path).read_bytes()
+    if data[:8] != TX_MAGIC:
+        raise ValueError("not a transaction fixture")
+    gens_capacity, count = struct.unpack_from("<II", data, 8)
+    off = 16
+    records = []
+    for _ in range(count):
+        if off + 5 > len(data):
+            raise ValueError("truncated transaction fixture")
+        tag, size = struct.unpack_from("<BI", data, off)
+        off += 5
+        if tag >= len(TX_KINDS) or off + size + 32 > len(data):
+            raise ValueError("bad record in a transaction fixture")
+        records.append(TxRecord(TX_KINDS[tag], data[off: off + size],
+                                data[off + size: off + size + 32]))
+        off += size + 32
+    if off != len(data):
+        raise ValueError("trailing bytes in a transaction fixture")
+    return gens_capacity, records
+
+
+def tampered_tx(wire: bytes, part: str) -> bytes:
+    """A transaction's wire bytes with bit 0 flipped in its proof's t_x
+    (part "proof"; the scalar stays canonical, so the proof parses and
+    its R1CS check rejects) or in its signature's s ("signature"; an
+    unsigned transaction's all-zero signature becomes a stray one)."""
+    from .vm.tx import Tx
+    tx = Tx.from_bytes(wire)
+    if part == "proof":
+        proof = bytearray(tx.proof)
+        proof[11 * 32] ^= 1                 # after the 11 points: t_x
+        tx.proof = bytes(proof)
+    elif part == "signature":
+        sig = bytearray(tx.signature)
+        sig[0] ^= 1
+        tx.signature = bytes(sig)
+    else:
+        raise ValueError(f"unknown part {part!r}")
+    return tx.to_bytes()

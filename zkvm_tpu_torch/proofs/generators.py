@@ -86,6 +86,9 @@ class BulletproofGens:
             self.H_vec[j].extend(self._h_chains[j].take(extra))
         self.gens_capacity = new_capacity
 
+    def share(self, j: int) -> "BulletproofGensShare":
+        return BulletproofGensShare(self, j)
+
     def G(self, n: int, m: int) -> list[RistrettoPoint]:
         """The first n generators of each of the first m parties, party-major
         (upstream AggregatedGensIter)."""
@@ -93,3 +96,17 @@ class BulletproofGens:
 
     def H(self, n: int, m: int) -> list[RistrettoPoint]:
         return [h for j in range(m) for h in self.H_vec[j][:n]]
+
+
+class BulletproofGensShare:
+    """One party's view of the generators (upstream BulletproofGensShare)."""
+
+    def __init__(self, gens: BulletproofGens, share: int):
+        self._gens = gens
+        self._share = share
+
+    def G(self, n: int) -> list[RistrettoPoint]:
+        return self._gens.G_vec[self._share][:n]
+
+    def H(self, n: int) -> list[RistrettoPoint]:
+        return self._gens.H_vec[self._share][:n]

@@ -2,7 +2,9 @@
 
 Replays the constraint system symbolically (no witness), reproduces the
 transcript, and folds the whole verification into ONE MSM == identity,
-which kernels/batch_verify_device.py::fused_split_check runs on the card.
+which kernels/batch_verify_device.py::fused_split_check runs on the card
+(`verify`), or an engine over host-decoded points (`verification_job`,
+the ZkVM verifier's form).
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ import time
 
 from ...constants import L
 from ...oracle import scalar
+from ...oracle.ristretto import RistrettoPoint, decompress_many
 from ..engine import Engine, resolve_engine
 from ..errors import R1CSError, VerificationError
 from ..generators import BulletproofGens, PedersenGens
@@ -220,6 +223,23 @@ class Verifier:
         bb = (-proof.e_blinding - c * proof.t_x_blinding) % L
         return (dyn_scalars, dyn_encodings, bb, basepoint_scalar,
                 g_v, h_v, padded_n)
+
+    def verification_job(
+        self, proof: R1CSProof, bp_gens: BulletproofGens,
+        pc_gens: PedersenGens,
+    ) -> tuple[list[int], list[RistrettoPoint]]:
+        """The mega-check MSM as (scalars, points) for an engine: the
+        dynamic terms, decoded on the host (an invalid encoding raises
+        ValueError), then [B_blinding, B] + G(padded_n) + H(padded_n) of
+        party 0 (the ZkVM verifier's per-transaction job)."""
+        dyn_s, dyn_enc, bb, bs, g_v, h_v, padded_n = \
+            self.verification_job_split_vec(proof, bp_gens, pc_gens)
+        gens = bp_gens.share(0)
+        scalars = dyn_s + [bb, bs] + g_v.to_ints() + h_v.to_ints()
+        points = (decompress_many(dyn_enc)
+                  + [pc_gens.B_blinding, pc_gens.B]
+                  + gens.G(padded_n) + gens.H(padded_n))
+        return scalars, points
 
     def verify(self, proof: R1CSProof, pc_gens: PedersenGens,
                bp_gens: BulletproofGens, device=None,

@@ -10,8 +10,13 @@
    kernels/csrc, one nvcc per source in parallel (K11 and K12 are entries
    of K2's source), and prints the build time and each kernel function's
    ptxas registers and spills;
+1b. builds the native host library (zkvm_tpu_torch/native, g++
+   -march=native on this machine) and prints its build time beside
+   os.cpu_count(); holds every native entry and host half byte for byte
+   against its pure-Python twin at small size (native_phase);
 2. holds K1-K4 against their plain PyTorch versions on the card at the
-   range-proof path's shapes (nb = 1024 proofs of 64 bits, m = 1), words
+   range-proof path's shapes (nb = 1024 proofs of 64 bits, m = 1, whose
+   native host half it times by stage: replay, weights, params), words
    and flags exactly equal, and times both (CUDA events and the
    profiler's device time); K1 also limb for limb, and at n = 1, 7, 33
    and 1,055 (the tails of its groups of five lanes), each with invalid
@@ -93,11 +98,12 @@
    (one MSM, K1, K2/K3, K4; the 256 MuSig aggregated_key MSMs on the
    small route) with every txid equal, tx 3's proof tampered (the
    attribution must name tx 3) and tx 255's tampered with attribution
-   off; verify_tx_batch job by job with the same verdicts; and the fused
-   block under the sort + gather and affine configurations; prints
-   host_s, device_s, tx/s and the MSM's size, width and route;
-11. prints the kernels line (every launch count must be > 0) and, last,
-   the device line.
+   off; verify_tx_batch job by job with the same verdicts; and one more
+   replay of the block, whose split check must accept under the sort +
+   gather and affine configurations; prints host_s, device_s, tx/s and
+   the MSM's size, width and route;
+11. prints each phase's seconds, the kernels line (every launch count must
+   be > 0) and, last, the device line.
 
 Range proofs come from the committed fixtures in zkvm_tpu_torch/data,
 tiled to the batch size; each copy gets its own random weight, so the MSM
@@ -278,6 +284,212 @@ def kernel_counts(fn, reps=5, traces=4):
     return {k: v / reps for k, v in best.items()}
 
 
+def native_phase(smi):
+    """Phase 1b: the native host library (zkvm_tpu_torch/native) on this
+    machine's build (-march=native): its build time beside os.cpu_count();
+    every entry held byte for byte against its pure-Python twin at small
+    size (STROBE and Keccak-f, ScalarVec, inversion, the Ristretto decode
+    with invalid and zero encodings and the encode, the range-proof replay
+    with a zero point, the scalar and params assemblies with a zero
+    challenge and y = 1, the R1CS flatten); the host halves against theirs
+    (prepare_batch_inputs at nb = 8, batch_verification_job on four proofs
+    of m = 1, 1, 2, 4, verification_job_split_vec on the Cloak)."""
+    import hashlib
+
+    from zkvm_tpu_torch import fixture, native
+    from zkvm_tpu_torch.constants import L, P
+    from zkvm_tpu_torch.kernels import batch_verify_device as bvd
+    from zkvm_tpu_torch.oracle import keccak, scalar
+    from zkvm_tpu_torch.oracle import ristretto as rist
+    from zkvm_tpu_torch.oracle.strobe import Strobe128
+    from zkvm_tpu_torch.proofs import rangeproof as rp
+    from zkvm_tpu_torch.proofs.errors import ProofError
+    from zkvm_tpu_torch.proofs.generators import BulletproofGens, PedersenGens
+    from zkvm_tpu_torch.proofs.r1cs import R1CSProof
+    from zkvm_tpu_torch.proofs.r1cs import constraint_system as cs
+    from zkvm_tpu_torch.proofs.r1cs.lc import LinearCombination, Variable
+    from zkvm_tpu_torch.proofs.scalarvec import PlainScalarVec, ScalarVec
+    from zkvm_tpu_torch.proofs.transcript import ProofTranscript
+
+    t0 = time.perf_counter()
+    native.lib()
+    built = (f"built in {native.build_seconds:.2f} s" if native.build_seconds
+             else "reused")
+    print(f"native host library: {built}, loaded in "
+          f"{time.perf_counter() - t0:.2f} s ({' '.join(native.COMPILER)} "
+          f"{' '.join(native.FLAGS)}); os.cpu_count() = {os.cpu_count()}",
+          flush=True)
+    rs = np.random.default_rng(1117)
+    edge = [0, 1, L - 1, L - 2]
+
+    def ints(n):
+        return (edge + [int.from_bytes(rs.bytes(32), "little") % L
+                        for _ in range(n)])[:n]
+
+    # STROBE, Keccak-f
+    nat, twin = native.NativeStrobe128(b"smoke"), Strobe128(b"smoke")
+    for step in range(40):
+        size = int(rs.choice([0, 1, 64, 165, 166, 167, 400]))
+        data = rs.bytes(size)
+        op = step % 5
+        if op == 0:
+            outs = [s.prf(size, False) for s in (nat, twin)]
+        elif op == 1:
+            outs = [s.challenge_bytes(b"c", size) for s in (nat, twin)]
+        else:
+            for s in (nat, twin):
+                (s.append_message if op == 2 else s.key if op == 3
+                 else s.meta_ad)(*((b"l", data) if op == 2 else (data, False)))
+            outs = [0, 0]
+        require(outs[0] == outs[1] and nat.state_bytes()
+                == twin.state_bytes(), f"native STROBE differs at {step}")
+    st = rs.bytes(200)
+    want = bytearray(st)
+    keccak.keccak_f1600_bytes(want)
+    require(native.keccak_f1600(st) == bytes(want), "native Keccak-f differs")
+    # ScalarVec and inversion, at n = 0, 1, 17
+    for n in (0, 1, 17):
+        a, b, c = ints(n), ints(n)[::-1], ints(n)
+        k, x0 = ints(6)[4:]
+        wide = (b"\xff" * 64 + rs.bytes(64 * n))[:64 * n]
+        outs = []
+        for cls in (ScalarVec, PlainScalarVec):
+            va, vb, vc = (cls.from_ints(v) for v in (a, b, c))
+            outs.append([va.mul(vb).buf, va.add(vb).buf, va.sub(vb).buf,
+                         va.scale(k).buf, va.axpb(k, x0).buf,
+                         va.muladd(vb, vc).buf, va.neg().buf,
+                         va.batch_invert().buf, va.sum(), va.inner(vb),
+                         cls.powers(k, n).buf, cls.from_wide_bytes(wide, n).buf])
+        require(outs[0] == outs[1], f"native ScalarVec differs at n = {n}")
+    xs = [0, 5, L - 1, 0] + ints(9)
+    require(scalar.batch_invert(xs) == scalar.batch_invert_plain(xs),
+            "native batch inversion differs")
+    # the Ristretto decode and encode
+    pts = [rist.BASEPOINT * (i + 2) for i in range(5)]
+    pts.append(pts[0] + pts[1])
+    enc = [bytes(32)] + [p._compress_py() for p in pts]
+    require(rist.compress_batch([p.ep for p in pts]) == enc[1:],
+            "native encode differs")
+    require([p.ep for p in rist.decompress_many(enc)]
+            == [p.ep for p in rist.decompress_many_plain(enc)],
+            "native decode differs")
+    for bad in ((P + 2).to_bytes(32, "little"), (1).to_bytes(32, "little")):
+        for fn in (rist.decompress_many, rist.decompress_many_plain):
+            try:
+                fn([enc[1], bad])
+                require(False, f"{fn.__name__} accepted an invalid encoding")
+            except ValueError:
+                pass
+    # the replay (and a zero point), the assemblies
+    label, n, _, recs = fixture.load()
+    mlabel, _, mrecs = fixture.load_mixed()
+    four = ([(label, w, v) for w, v in recs[:2]]
+            + [next((mlabel, w, v) for w, v in mrecs if len(v) == mm)
+               for mm in (2, 4)])
+    bp, pc = BulletproofGens(n, 4), PedersenGens()
+    for lb, w, vcs in four:
+        proof = rp.RangeProof.from_bytes(w)
+        tn, tt = ProofTranscript(lb), ProofTranscript.plain(lb)
+        require(proof._replay_challenges(bp, pc, tn, vcs, n)
+                == proof._replay_challenges_plain(bp, pc, tt, vcs, n)
+                and tn.strobe.state_bytes() == tt.strobe.state_bytes(),
+                "native replay differs")
+    zero = rp.RangeProof.from_bytes(four[0][1])
+    zero.ipp_proof.L_vec[2] = bytes(32)
+    for fn, t in ((zero._replay_challenges, ProofTranscript(label)),
+                  (zero._replay_challenges_plain, ProofTranscript.plain(label))):
+        try:
+            fn(bp, pc, t, four[0][2], n)
+            require(False, "a zero L was accepted")
+        except ProofError as e:
+            require(str(e) == rp.IDENTITY_ERROR, f"a zero L: {e}")
+    for case in range(3):
+        u, (y, z, a, b) = ints(8)[4:], ints(10)[6:]
+        if case == 1:
+            u[1] = 0
+        elif case == 2:
+            y = 1
+        g, wt = rp.scalar_assembly(u, 8, 2, y, z, a, b), \
+            rp.scalar_assembly_plain(u, 8, 2, y, z, a, b)
+        require(g[:2] == wt[:2] and g[4] == wt[4] and g[2].buf == wt[2].buf
+                and g[3].buf == wt[3].buf, f"native scalar assembly differs "
+                                           f"(case {case})")
+    proofs = [rp.RangeProof.from_bytes(w) for w, _ in recs[:3]]
+    reps = []
+    for i in range(3):
+        v = ints(15)[4:]
+        reps.append({"y": 1 if i == 1 else v[0], "z": v[1], "x": v[2],
+                     "w": v[3], "c": v[4],
+                     "u": [0 if (i == 2 and j == 3) else v[5 + j]
+                           for j in range(6)]})
+    ent = bytes(32)
+    chal = b"".join(scalar.to_bytes(x) for r in reps for x in
+                    [r["y"], r["z"], r["x"], r["w"], r["c"], *r["u"]])
+    prf = b"".join(scalar.to_bytes(x) for p in proofs for x in
+                   (p.t_x, p.t_x_blinding, p.e_blinding, p.ipp_proof.a,
+                    p.ipp_proof.b))
+    dig = b"".join(hashlib.sha3_512(ent + i.to_bytes(8, "little")
+                                    + p.to_bytes()).digest()
+                   for i, p in enumerate(proofs))
+    got = native.fused_params_assembly(chal, prf, dig, 3, 6, n, 1)
+    want = bvd.params_plain(proofs, reps, n, 1, 6, ent)
+    require(all((g == w).all() for g, w in zip(got, want)),
+            "native params assembly differs")
+    # the flatten
+    mk = [Variable.multiplier_left, Variable.multiplier_right,
+          Variable.multiplier_output, Variable.committed]
+    coeffs = [1, -1, 1 << 63, (1 << 64) + 5, -(1 << 70), L - 1, 0]
+    cons = [LinearCombination([
+        ((Variable("one", 0) if kd == 4 else mk[kd](int(rs.integers(3)))),
+         coeffs[int(rs.integers(len(coeffs)))])
+        for kd in rs.integers(0, 5, size=int(rs.integers(0, 5)))])
+        for _ in range(12)]
+    z = ints(5)[4]
+    fl = cs.flatten_constraints_vec(cons, z, 4, 3, 1)
+    tw = cs.flatten_constraints(cons, z, 4, 3)
+    require([fl[0].to_ints(), fl[1].to_ints(), fl[2].to_ints(), fl[3], fl[4]]
+            == [tw[0] + [0], tw[1] + [0], tw[2] + [0], tw[3], tw[4]],
+            "native flatten differs")
+    # the host halves
+    batch = [rp.RangeProof.from_bytes(recs[i % len(recs)][0])
+             for i in range(8)]
+    vcs8 = [recs[i % len(recs)][1] for i in range(8)]
+    got = bvd.prepare_batch_inputs(batch, bp, pc, [ProofTranscript(label)
+                                                   for _ in range(8)],
+                                   vcs8, n, ent)
+    want = bvd.prepare_batch_inputs_plain(
+        batch, bp, pc, [ProofTranscript.plain(label) for _ in range(8)],
+        vcs8, n, ent)
+    require(all((g == w).all() for g, w in zip(got[:3], want[:3]))
+            and got[3:] == want[3:], "prepare_batch_inputs differs")
+    outs = []
+    for job, pt in ((rp.batch_verification_job, ProofTranscript),
+                    (rp.batch_verification_job_plain, ProofTranscript.plain)):
+        sc, pp = job([rp.RangeProof.from_bytes(w) for _, w, _ in four], bp,
+                     pc, [pt(lb) for lb, _, _ in four],
+                     [v for _, _, v in four], n, ent)
+        outs.append((sc.buf, [p.ep for p in pp]))
+    require(outs[0] == outs[1], "batch_verification_job differs")
+    fx = fixture.load_r1cs(fixture.R1CS_CLOAK)
+    outs = []
+    for plain in (False, True):
+        ver = fixture.r1cs_verifier(
+            fx, ProofTranscript.plain(fx.label) if plain else None)
+        fn = (ver.verification_job_split_vec_plain if plain
+              else ver.verification_job_split_vec)
+        r = fn(R1CSProof.from_bytes(fx.wire),
+               BulletproofGens(fx.gens_capacity), pc)
+        outs.append(r[:4] + (r[4].buf, r[5].buf, r[6]))
+    require(outs[0] == outs[1], "verification_job_split_vec differs")
+    print("native host library: every entry and host half equal to its "
+          "pure-Python twin (STROBE, Keccak-f, ScalarVec at n = 0, 1, 17, "
+          "inversion, decode with invalid and zero encodings, encode, replay "
+          "with a zero L, scalar and params assemblies with a zero challenge "
+          "and y = 1, flatten; prepare_batch_inputs at nb = 8, "
+          "batch_verification_job at m = 1, 1, 2, 4, the Cloak's "
+          f"verification_job_split_vec) [{smi}]", flush=True)
+
+
 def launch_check():
     """python3 chip_smoke.py --launch-check, run by main() as a child
     process: the kernels window_totals_small runs per call after its sort
@@ -333,7 +545,8 @@ def main():
                                               words_to_points)
     from zkvm_tpu_torch.constants import L, P
     from zkvm_tpu_torch.oracle.ristretto import RistrettoPoint
-    from zkvm_tpu_torch.parallel.tx_batch import (fused_verify_tx_batch,
+    from zkvm_tpu_torch.parallel.tx_batch import (_chunk_precompute,
+                                                  fused_verify_tx_batch,
                                                   verify_tx_batch)
     from zkvm_tpu_torch.proofs.errors import ProofError, VerificationError
     from zkvm_tpu_torch.proofs.generators import BulletproofGens, PedersenGens
@@ -348,6 +561,15 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
+    phase_s, t_mark = {}, [time.perf_counter()]
+
+    def mark(name):
+        """Close phase `name`: its seconds since the previous mark."""
+        now = time.perf_counter()
+        phase_s[name] = round(now - t_mark[0], 1)
+        t_mark[0] = now
+        print(f"phase {name}: {phase_s[name]} s", flush=True)
+
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(built)} kernels "
@@ -356,6 +578,11 @@ def main():
         for fn, regs in ptxas_report(_build, src):
             print(f"  ptxas {src} {fn}: {regs}")
     dev = torch.device("cuda")
+    mark("build")
+
+    # --------------------------------------------------------- phase 1b
+    native_phase(smi)
+    mark("native")
 
     label, n, m, records = fixture.load()
     bp, pc = BulletproofGens(n, m), PedersenGens()
@@ -376,8 +603,13 @@ def main():
     # ---------------------------------------------------------- phase 2
     nb = 1024
     t = time.perf_counter()
-    params, bbB_pp, dyn, m, lg = bvd.prepare_batch_inputs(*batch(nb))
-    print(f"host inputs for nb={nb}: {time.perf_counter() - t:.2f} s", flush=True)
+    stages = {}
+    params, bbB_pp, dyn, m, lg = bvd.prepare_batch_inputs(*batch(nb),
+                                                          timings=stages)
+    print(f"host inputs for nb={nb}: {time.perf_counter() - t:.2f} s; native "
+          "host half by stage (s): " + json.dumps(
+              {k: round(v, 4) for k, v in stages.items()})
+          + f"; os.cpu_count() = {os.cpu_count()} [{smi}]", flush=True)
     static = bvd.static_gens_words(bp, pc, n, m, dev)
     params_t = to_device(params, dev)
     bbB_t = to_device(bvd.sum_bbB(bbB_pp), dev)
@@ -689,6 +921,8 @@ def main():
     width_sweep("nb=1024", points,
                 bvd.batch_msm_scalars(params_t, bbB_t, n, m, lg), wbits)
 
+    mark("2 (K1-K4, nb = 1024)")
+
     # ------------------------------------------------- phase 3: K9-K12
     t = time.perf_counter()
     params4, bbB4_pp, dyn4, _, lg4 = bvd.prepare_batch_inputs(*batch(4096))
@@ -852,6 +1086,8 @@ def main():
         "to_affine_words": round(cuda_ms(lambda: msm.to_affine_words(points),
                                          3), 4)}), flush=True)
 
+    mark("3 (nb = 4096, K9-K12)")
+
     # ---------------------------------------------------------- phase 4
     kernels = [decompress.ristretto_decode, msm.bucket_accumulate,
                msm.bucket_fold, combine.horner_check, pointwise.seg_combine,
@@ -872,8 +1108,11 @@ def main():
         timings = {}
         batch_verify(*batch(nb), device=dev, timings=timings)
         wall = timings["host_s"] + timings["device_s"]
-        print(f"nb={nb} accept: host_s={timings['host_s']:.3f} "
-              f"device_s={timings['device_s']:.4f} msm_size={timings['msm_size']} "
+        print(f"nb={nb} accept: host_s={timings['host_s']:.3f} ("
+              + ", ".join(f"{k} {timings[k]:.4f}" for k in (
+                  "replay_s", "weights_s", "params_s", "words_s"))
+              + f") device_s={timings['device_s']:.4f} "
+              f"msm_size={timings['msm_size']} "
               f"wbits={timings['wbits']} verifies_per_s={nb / wall:.1f} "
               f"device_only_verifies_per_s={nb / timings['device_s']:.1f} "
               f"[{smi}]", flush=True)
@@ -889,6 +1128,8 @@ def main():
     require(all(c > 0 for c in range_path[:4]),
             f"the range-proof path skipped a kernel: {range_path}")
     print(f"range-proof path launches: {range_path}", flush=True)
+
+    mark("4 (range-proof path)")
 
     # ---------------------------------------------------------- phase 5
     cloak_fx = fixture.load_r1cs(fixture.R1CS_CLOAK)
@@ -1161,6 +1402,8 @@ def main():
               f"{cuda_ms(lambda: msm.window_totals_large(pts_n, dg11, 11), 5):.4f}"
               f" totals equal [{smi}]", flush=True)
 
+    mark("5 (small route)")
+
     # ---------------------------------------------------------- phase 6
     configs = {"default": msm.MsmConfig(),
                "gather+sort": msm.MsmConfig(sort=True, gather=True),
@@ -1224,6 +1467,8 @@ def main():
     check_configs("r1cs 2^15", r_points, r_digits, r_w,
                   lambda cfg: bvd.split_msm_check(r_static, r_enc, r_static_sc,
                                                   r_dyn_sc, r_w, cfg))
+
+    mark("6 (configurations)")
 
     # ---------------------------------------------------------- phase 7
     def tampered_encoding(enc: bytes) -> bytes:
@@ -1289,6 +1534,8 @@ def main():
             f"the R1CS path skipped a kernel: {r1cs_path}")
     print(f"R1CS path launches: {r1cs_path}", flush=True)
 
+    mark("7 (R1CS path)")
+
     # ---------------------------------------------------------- phase 8
     reset()
     pointwise.seg_combine(p5, q5, f5)
@@ -1299,6 +1546,8 @@ def main():
     entry = counts()
     require(all(entry[i] > 0 for i in (4, 5, 6, 7)),
             f"the entry points did not launch K5-K8: {entry}")
+
+    mark("8 (entry points)")
 
     # ---------------------------------------------------------- phase 9
     # 1,024 proofs, 256 each of m = 1, 2, 4, 8, tiled from the fixtures
@@ -1436,6 +1685,8 @@ def main():
           + json.dumps({c: round(cuda_ms(lambda: window_totals_from_words(
               pw_t, sw_t, m_w, cfg), 3), 4) for c, cfg in configs.items()})
           + f" [{smi}]", flush=True)
+    mark("9 (engine path)")
+
     # ---------------------------------------------------------- phase 10
     # the ZkVM transaction path on the committed block
     # (zkvm_tpu_torch/data/txs_block256.bin, made and verified by the JAX
@@ -1527,13 +1778,22 @@ def main():
         require(f"(job {i})" in why, f"verify_tx_batch did not name job {i}")
         print(f"verify_tx_batch, tx {i} tampered: {why}", flush=True)
 
-    # the fused block under the other two MSM configurations
+    # the fused block under the other two MSM configurations: one replay
+    # of the block (_chunk_precompute), then its split check under each
+    t = time.perf_counter()
+    vts, head, g_buf, h_buf, dyn_s, dyn_enc = _chunk_precompute(
+        [tx.to_bytes() for tx in block_txs], tx_bp, os.urandom(32),
+        TorchEngine(dev))
+    require([v.id for v in vts] == block_ids, "the block's replay: txids")
+    static_buf = (head[0].to_bytes(32, "little")
+                  + head[1].to_bytes(32, "little") + g_buf + h_buf)
+    print(f"the block's replay for the configurations: "
+          f"{time.perf_counter() - t:.3f} s", flush=True)
     for c in ("gather+sort", "affine"):
         tm = {}
-        ids = [v.id for v in fused_verify_tx_batch(
-            block_txs, tx_bp, engine=TorchEngine(dev, config=configs[c]),
-            timings=tm)]
-        require(ids == block_ids, f"the fused block under {c} rejected")
+        require(bvd.fused_split_check(static_buf, dyn_s, dyn_enc, tx_bp, pc,
+                                      dev, tm, configs[c]),
+                f"the fused block under {c} rejected")
         print(f"fused block under {c}: accept, host_s={tm['host_s']:.3f} "
               f"device_s={tm['device_s']:.4f} [{smi}]", flush=True)
     tx_path = counts()
@@ -1562,6 +1822,8 @@ def main():
     launches = [sum(c) for c in zip(range_path, r1cs_path, entry, engine_path,
                                     tx_path)]
     require(all(c > 0 for c in launches), f"a kernel never launched: {launches}")
+
+    mark("10 (tx path)")
 
     # ---------------------------------------------------------- phase 11
     table = [  # key, name, source, replaced TPU kernel(s)
@@ -1604,6 +1866,8 @@ def main():
          "bound_by": results[key]["bound"][1],
          "library_ms": results[key].get("lib_ms")}
         for (key, name, src, rep), cnt in zip(table, launches)]}
+    print("phase seconds: " + json.dumps(phase_s)
+          + f"; in all {sum(phase_s.values()):.1f} s", flush=True)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

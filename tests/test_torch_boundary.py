@@ -1,15 +1,20 @@
 """The port's boundary: no module of zkvm_tpu_torch, and not chip_smoke.py,
-imports JAX or the JAX package; and its entry points run on the card unless
-the caller asks for the CPU."""
+imports JAX or the JAX package, and the native host library is built from
+the port's own sources alone; its entry points run on the card unless the
+caller asks for the CPU; and nothing falls back silently (a wrapper given
+a tensor on neither the CPU nor a card, a native library that fails to
+build)."""
 
 import ast
+import re
+import sys
 from pathlib import Path
 
 import pytest
 import torch
 
 import zkvm_tpu_torch
-from zkvm_tpu_torch import fixture
+from zkvm_tpu_torch import fixture, native
 from zkvm_tpu_torch.kernels import (combine, decompress, gather, msm,
                                     pointwise, sort)
 from zkvm_tpu_torch.kernels.engine import TorchEngine
@@ -41,6 +46,15 @@ def test_port_imports_no_jax():
         for name in _imports(path):
             top = name.split(".")[0]
             assert top not in FORBIDDEN, f"{path} imports {name}"
+    # the native loader compiles and hashes files under native/ only, and
+    # the sources include nothing of the repo but native/field51.h
+    here = ROOT / "native"
+    assert native.SRC_DIR == here and native.BUILD_DIR.parent == here
+    for name in native.SOURCES + native.HEADERS:
+        src = (native.SRC_DIR / name).resolve()
+        assert src.parent == here and src.exists(), name
+        local = re.findall(r'#include\s+"([^"]+)"', src.read_text())
+        assert set(local) <= {"field51.h"}, (name, local)
 
 
 def test_entry_point_without_device_needs_cuda():
@@ -87,9 +101,23 @@ def test_engine_entry_points_without_device_need_cuda():
                      [recs1[0][1], vcs], n)
 
 
-def test_kernel_wrappers_refuse_non_cuda_devices():
+def test_kernel_wrappers_refuse_non_cuda_devices(monkeypatch, tmp_path):
     """A wrapper takes its plain version only for a CPU tensor; anything
-    else must be a CUDA tensor, never a silent fallback."""
+    else must be a CUDA tensor, never a silent fallback.  Nor is there one
+    for the native host library: a failing or missing compiler raises, with
+    the compiler's output."""
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "COMPILER", [
+        sys.executable, "-c",
+        "import sys; sys.stderr.write('no such compiler'); sys.exit(1)"])
+    with pytest.raises(RuntimeError, match="failed to build(.|\n)*no such "
+                                           "compiler"):
+        native.lib()
+    monkeypatch.setattr(native, "COMPILER", [str(tmp_path / "missing-g++")])
+    with pytest.raises(RuntimeError, match="cannot be built"):
+        native.lib()
+    assert not list(tmp_path.glob("*.so"))
     meta = torch.empty((8, 4), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         decompress.ristretto_decode(meta)

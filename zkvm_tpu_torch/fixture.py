@@ -165,13 +165,15 @@ def load_r1cs(path) -> R1CSFixture:
                        data[off:])
 
 
-def r1cs_verifier(fx: R1CSFixture):
-    """A Verifier with the fixture's circuit laid on it, ready for verify."""
+def r1cs_verifier(fx: R1CSFixture, transcript=None):
+    """A Verifier with the fixture's circuit laid on it, ready for verify,
+    over `transcript` (default: a new ProofTranscript of the fixture's
+    label)."""
     from .gadgets import allocate_value, cloak, range_proof_gadget
     from .proofs.r1cs import Verifier
     from .proofs.transcript import ProofTranscript
 
-    verifier = Verifier(ProofTranscript(fx.label))
+    verifier = Verifier(transcript or ProofTranscript(fx.label))
     if fx.circuit == "cloak":
         k_in, k_out, bits = fx.params
         ins = [allocate_value(verifier, None) for _ in range(k_in)]

@@ -2,10 +2,12 @@
 card.
 
 Counterpart of the JAX package's kernels/batch_verify_device.py.  The host
-half (prepare_batch_inputs) replays every proof's transcript, batch-inverts
-the challenges, hashes the per-proof weights and packs ~20 canonical
-scalars per proof.  The device half (batch_msm_check) is one chain on the
-card:
+half (prepare_batch_inputs) replays every proof's transcript in one call
+of the native library (strobe.cpp rangeproof_replay_batch), hashes the
+per-proof weights and assembles the compact params of the whole batch in
+another (scalarvec.cpp fused_params_assembly: one batched inversion, the
+per-proof products); prepare_batch_inputs_plain is its pure-Python twin.
+The device half (batch_msm_check) is one chain on the card:
 
   synthesis    _synthesize_lm: every MSM scalar from the packed challenges
                (mod-ℓ tensor ops, kernels/scalarmod.py)
@@ -25,16 +27,18 @@ and K4 over the same resident generator columns.
 
 from __future__ import annotations
 
+import hashlib
 import time
 import weakref
 
 import numpy as np
 import torch
 
-from ..constants import L
+from .. import native
+from ..constants import L, LABEL_IPP, LABEL_RANGEPROOF
 from ..oracle import scalar
-from ..proofs.errors import FormatError
-from ..proofs.rangeproof import batch_weight
+from ..proofs.errors import FormatError, ProofError
+from ..proofs.rangeproof import IDENTITY_ERROR, batch_weight
 from ..proofs.rangeproof import delta as delta_fn
 from . import scalarmod as sm
 from .combine import horner_check
@@ -266,14 +270,8 @@ def dyn_words(proofs, value_commitments) -> np.ndarray:
     return encoding_words(encs)
 
 
-def prepare_batch_inputs(proofs, bp_gens, pc_gens, transcripts,
-                         value_commitments, n: int,
-                         entropy: bytes = b"\x01" * 32):
-    """Host half: transcript replays, one batched inversion, per-proof
-    weights and params.  Returns (params (nb, 9 + lg, 8) uint32,
-    bbB_per_proof (nb, 2, 8) uint32 — each proof's weighted B_blinding and
-    B scalars, dyn words (8, nb·k) uint32, m, lg).  Raises FormatError /
-    ProofError on malformed proofs."""
+def _batch_shape(proofs, transcripts, value_commitments, n: int):
+    """-> (nb, m, lg) of a fused batch, whose proofs share one m."""
     nb = len(proofs)
     if not nb or nb != len(transcripts) or nb != len(value_commitments):
         raise FormatError("empty batch, or proofs, transcripts and value "
@@ -281,15 +279,82 @@ def prepare_batch_inputs(proofs, bp_gens, pc_gens, transcripts,
     m = len(value_commitments[0])
     if any(len(vc) != m for vc in value_commitments):
         raise FormatError("batched proofs must share one aggregation size")
-    lg = (n * m).bit_length() - 1
+    return nb, m, (n * m).bit_length() - 1
 
-    replays = [p._replay_challenges(bp_gens, pc_gens, t, vcs, n)
+
+def prepare_batch_inputs(proofs, bp_gens, pc_gens, transcripts,
+                         value_commitments, n: int,
+                         entropy: bytes = b"\x01" * 32,
+                         timings: dict | None = None):
+    """Host half, in the native library: one transcript replay of the whole
+    batch, the per-proof weight hashes, one params assembly.  Returns
+    (params (nb, 9 + lg, 8) uint32, bbB_per_proof (nb, 2, 8) uint32 — each
+    proof's weighted B_blinding and B scalars, dyn words (8, nb·k) uint32,
+    m, lg).  Raises FormatError / ProofError on malformed proofs, the
+    first in proof order, as the proof-by-proof twin does.  timings, when
+    given, receives replay_s, weights_s, params_s and words_s."""
+    t0 = time.perf_counter()
+    nb, m, lg = _batch_shape(proofs, transcripts, value_commitments, n)
+    # every proof's structure before one replay of the proofs ahead of the
+    # first malformed one: an identity point among those raises first
+    bad = None
+    for i, (proof, vcs) in enumerate(zip(proofs, value_commitments)):
+        try:
+            proof._check_shape(bp_gens, vcs, n)
+        except ProofError as e:
+            bad = (i, e)
+            break
+    k = nb if bad is None else bad[0]
+    wires = [p.to_bytes() for p in proofs]
+    rcs, blobs = native.rangeproof_replay_batch(
+        [t.strobe for t in transcripts[:k]], LABEL_RANGEPROOF, LABEL_IPP, n,
+        m, b"".join(v for vcs in value_commitments[:k] for v in vcs),
+        b"".join(wires[:k]), 224 + 64 * lg + 64, lg)
+    if any(rcs):
+        raise ProofError(IDENTITY_ERROR)
+    if bad is not None:
+        raise bad[1]
+    t1 = time.perf_counter()
+    digests = b"".join(
+        hashlib.sha3_512(entropy + i.to_bytes(8, "little") + w).digest()
+        for i, w in enumerate(wires))
+    t2 = time.perf_counter()
+    prf = b"".join(scalar.to_bytes(v) for p in proofs
+                   for v in (p.t_x, p.t_x_blinding, p.e_blinding,
+                             p.ipp_proof.a, p.ipp_proof.b))
+    params, bbB_per_proof = native.fused_params_assembly(
+        b"".join(blobs), prf, digests, nb, lg, n, m)
+    t3 = time.perf_counter()
+    dyn = dyn_words(proofs, value_commitments)
+    if timings is not None:
+        timings.update(replay_s=t1 - t0, weights_s=t2 - t1,
+                       params_s=t3 - t2, words_s=time.perf_counter() - t3)
+    return params, bbB_per_proof, dyn, m, lg
+
+
+def prepare_batch_inputs_plain(proofs, bp_gens, pc_gens, transcripts,
+                               value_commitments, n: int,
+                               entropy: bytes = b"\x01" * 32):
+    """prepare_batch_inputs' pure-Python twin: proof-by-proof replays, one
+    batched inversion, the per-proof params in Python ints."""
+    nb, m, lg = _batch_shape(proofs, transcripts, value_commitments, n)
+    replays = [p._replay_challenges_plain(bp_gens, pc_gens, t, vcs, n)
                for p, t, vcs in zip(proofs, transcripts, value_commitments)]
+    params, bbB_per_proof = params_plain(proofs, replays, n, m, lg, entropy)
+    return params, bbB_per_proof, dyn_words(proofs, value_commitments), m, lg
+
+
+def params_plain(proofs, replays: list[dict], n: int, m: int, lg: int,
+                 entropy: bytes):
+    """fused_params_assembly's pure-Python twin: each proof's replayed
+    challenges ({"y", "z", "x", "w", "c", "u"}) and scalars -> (params
+    (nb, 9 + lg, 8), bbB_per_proof (nb, 2, 8)), uint32."""
+    nb = len(proofs)
     # one inversion pass for y, every u, and y - 1 (delta's geometric sum)
     all_u = [u for r in replays for u in r["u"]]
     ys = [r["y"] for r in replays]
     ym1 = [(r["y"] - 1) % L or 1 for r in replays]
-    inv = scalar.batch_invert(ys + all_u + ym1)
+    inv = scalar.batch_invert_plain(ys + all_u + ym1)
     y_invs = inv[:nb]
     u_invs = [inv[nb + i * lg: nb + (i + 1) * lg] for i in range(nb)]
     ym1_invs = inv[nb + nb * lg:]
@@ -328,7 +393,7 @@ def prepare_batch_inputs(proofs, bp_gens, pc_gens, transcripts,
     params = pack_verification_params_compact(jobs)
     bbB_per_proof = np.frombuffer(b"".join(bbB_rows), np.uint32).reshape(
         nb, 2, 8)
-    return params, bbB_per_proof, dyn_words(proofs, value_commitments), m, lg
+    return params, bbB_per_proof
 
 
 def sum_bbB(bbB_pp: np.ndarray) -> np.ndarray:
@@ -358,13 +423,14 @@ def batch_verify_device(proofs, bp_gens, pc_gens, transcripts,
     """Batched verification through the device half; True iff the batch
     accepts.  Every proof must aggregate the same number m of values.  An
     invalid point encoding makes it False; malformed proofs raise
-    FormatError/ProofError.  timings, when given, receives host_s,
-    device_s (upload, device chain and the verdict's fetch), msm_size and
-    wbits."""
+    FormatError/ProofError.  timings, when given, receives host_s (and
+    prepare_batch_inputs' stages), device_s (upload, device chain and the
+    verdict's fetch), msm_size and wbits."""
     dev = require_device(device)
     t_start = time.perf_counter()
     params, bbB_pp, dyn, m, lg = prepare_batch_inputs(
-        proofs, bp_gens, pc_gens, transcripts, value_commitments, n, entropy)
+        proofs, bp_gens, pc_gens, transcripts, value_commitments, n, entropy,
+        timings)
     bbB = sum_bbB(bbB_pp)
     static = static_gens_words(bp_gens, pc_gens, n, m, dev)
     total = static.shape[2] + dyn.shape[1]

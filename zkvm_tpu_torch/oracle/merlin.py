@@ -4,6 +4,10 @@ Upstream counterpart: merlin/src/transcript.rs — Transcript::{new, append_mess
 append_u64, challenge_bytes, build_rng} and TranscriptRng.  The known-answer test
 (Transcript(b"test protocol") + "some label"/"some data" -> challenge hex
 d5a21972...) pins bit-exactness against the upstream crate.
+
+Every transcript runs on the port's C++ STROBE (native.NativeStrobe128);
+Transcript.plain builds one on the pure-Python twin (strobe.Strobe128),
+which the tests and chip_smoke.py hold the native one against.
 """
 
 from __future__ import annotations
@@ -11,6 +15,7 @@ from __future__ import annotations
 import os
 
 from ..constants import MERLIN_PROTOCOL_LABEL, MERLIN_DOMSEP_LABEL
+from ..native import NativeStrobe128
 from .strobe import Strobe128
 
 
@@ -22,11 +27,18 @@ class Transcript:
     __slots__ = ("strobe",)
 
     def __init__(self, label: bytes):
-        self.strobe = Strobe128(MERLIN_PROTOCOL_LABEL)
+        self.strobe = NativeStrobe128(MERLIN_PROTOCOL_LABEL)
         self.append_message(MERLIN_DOMSEP_LABEL, label)
 
     @classmethod
-    def _from_strobe(cls, strobe: Strobe128) -> "Transcript":
+    def plain(cls, label: bytes) -> "Transcript":
+        """The same transcript over the pure-Python STROBE twin."""
+        t = cls._from_strobe(Strobe128(MERLIN_PROTOCOL_LABEL))
+        t.append_message(MERLIN_DOMSEP_LABEL, label)
+        return t
+
+    @classmethod
+    def _from_strobe(cls, strobe) -> "Transcript":
         t = cls.__new__(cls)
         t.strobe = strobe
         return t
@@ -37,19 +49,13 @@ class Transcript:
         return type(self)._from_strobe(self.strobe.clone())
 
     def append_message(self, label: bytes, message: bytes):
-        s = self.strobe
-        s.meta_ad(label, False)
-        s.meta_ad(_le32(len(message)), True)
-        s.ad(message, False)
+        self.strobe.append_message(label, message)
 
     def append_u64(self, label: bytes, n: int):
         self.append_message(label, int(n).to_bytes(8, "little"))
 
     def challenge_bytes(self, label: bytes, n: int) -> bytes:
-        s = self.strobe
-        s.meta_ad(label, False)
-        s.meta_ad(_le32(n), True)
-        return s.prf(n, False)
+        return self.strobe.challenge_bytes(label, n)
 
     def build_rng(self) -> "TranscriptRngBuilder":
         return TranscriptRngBuilder(self.strobe.clone())
@@ -61,7 +67,7 @@ class TranscriptRngBuilder:
 
     __slots__ = ("strobe",)
 
-    def __init__(self, strobe: Strobe128):
+    def __init__(self, strobe):
         self.strobe = strobe
 
     def rekey_with_witness_bytes(self, label: bytes, witness: bytes) -> "TranscriptRngBuilder":
@@ -82,7 +88,7 @@ class TranscriptRngBuilder:
 class TranscriptRng:
     __slots__ = ("strobe",)
 
-    def __init__(self, strobe: Strobe128):
+    def __init__(self, strobe):
         self.strobe = strobe
 
     def fill_bytes(self, n: int) -> bytes:

@@ -4,10 +4,17 @@ Upstream counterpart: curve25519-dalek src/ristretto.rs; wire behavior per RFC 9
 (ENCODE §4.3.1, DECODE §4.3.2, MAP/one-way map §4.3.4).  The ``RistrettoPoint``
 class here is the protocol-layer point type of the port; the device path
 packs batches of them into canonical words (kernels/words.py).
+
+ENCODE and DECODE run in the port's C++ host library
+(native/ristretto255.cpp), one call for a batch; _compress_py,
+_decompress_py and decompress_many_plain are their pure-Python twins.
 """
 
 from __future__ import annotations
 
+import numpy as np
+
+from .. import native
 from ..constants import (
     P, L, SQRT_M1, EDWARDS_D, ONE_MINUS_D_SQ, D_MINUS_ONE_SQ,
     SQRT_AD_MINUS_ONE, INVSQRT_A_MINUS_D,
@@ -60,7 +67,11 @@ class RistrettoPoint:
 
     # -- encoding ----------------------------------------------------------
     def compress(self) -> bytes:
-        """RFC 9496 ENCODE (upstream RistrettoPoint::compress)."""
+        """RFC 9496 ENCODE (upstream RistrettoPoint::compress), native."""
+        return compress_batch([self.ep])[0]
+
+    def _compress_py(self) -> bytes:
+        """compress's pure-Python twin."""
         X, Y, Z, T = self.ep
         u1 = (Z + Y) * (Z - Y) % P
         u2 = X * Y % P
@@ -83,8 +94,13 @@ class RistrettoPoint:
 
     @staticmethod
     def decompress(b: bytes) -> "RistrettoPoint":
-        """RFC 9496 DECODE (upstream CompressedRistretto::decompress).
-        Raises ValueError on invalid encodings."""
+        """RFC 9496 DECODE (upstream CompressedRistretto::decompress),
+        native.  Raises ValueError on invalid encodings."""
+        return decompress_many([b])[0]
+
+    @staticmethod
+    def _decompress_py(b: bytes) -> "RistrettoPoint":
+        """decompress's pure-Python twin."""
         if len(b) != 32:
             raise ValueError("ristretto encoding must be 32 bytes")
         s = field.from_bytes_strict(b)
@@ -130,8 +146,42 @@ class RistrettoPoint:
 
 
 def decompress_many(encodings: list[bytes]) -> list[RistrettoPoint]:
-    """DECODE every encoding; raises ValueError on the first invalid one."""
-    return [RistrettoPoint.decompress(b) for b in encodings]
+    """DECODE every encoding in one native call; raises ValueError on the
+    first invalid one.  Each point keeps its canonical words (the native
+    coordinates are the engine's upload form, kernels/engine.py)."""
+    n = len(encodings)
+    for b in encodings:
+        if len(b) != 32:
+            raise ValueError("ristretto encoding must be 32 bytes")
+    if n == 0:
+        return []
+    coords, ok = native.decompress_batch_raw(b"".join(encodings), n)
+    words = np.frombuffer(coords, np.uint32).reshape(n, 4, 8)
+    out = []
+    for i in range(n):
+        if not ok[i]:
+            raise ValueError(f"invalid ristretto encoding at index {i}")
+        o = coords[128 * i: 128 * (i + 1)]
+        p = RistrettoPoint(tuple(int.from_bytes(o[32 * k: 32 * k + 32],
+                                                "little") for k in range(4)))
+        p._words = words[i]
+        out.append(p)
+    return out
+
+
+def decompress_many_plain(encodings: list[bytes]) -> list[RistrettoPoint]:
+    """decompress_many's pure-Python twin."""
+    return [RistrettoPoint._decompress_py(b) for b in encodings]
+
+
+def compress_batch(eps: list[edwards.Point]) -> list[bytes]:
+    """ENCODE extended points in one native call."""
+    n = len(eps)
+    if n == 0:
+        return []
+    raw = native.compress_batch_raw(
+        b"".join((c % P).to_bytes(32, "little") for ep in eps for c in ep), n)
+    return [raw[32 * i: 32 * (i + 1)] for i in range(n)]
 
 
 def _elligator_map(t: int) -> edwards.Point:

@@ -1,13 +1,18 @@
 """Scalars mod ℓ = 2^252 + 27742...493, the Ristretto255 group order.
 
-Upstream counterpart: curve25519-dalek src/scalar.rs.  Pure Python: the
-port carries no native host module yet.
+Upstream counterpart: curve25519-dalek src/scalar.rs.  Inversion runs in
+the port's C++ host library (native/scalarvec.cpp, Montgomery's trick);
+invert_plain and batch_invert_plain are its pure-Python twins.
 """
 
+import ctypes
+
+from .. import native
 from ..constants import L
 
 __all__ = [
-    "add", "sub", "neg", "mul", "invert", "batch_invert",
+    "add", "sub", "neg", "mul", "invert", "batch_invert", "invert_plain",
+    "batch_invert_plain",
     "from_bytes_mod_order", "from_bytes_mod_order_wide", "from_canonical_bytes",
     "to_bytes", "sum_of_powers",
 ]
@@ -30,12 +35,30 @@ def mul(a: int, b: int) -> int:
 
 
 def invert(a: int) -> int:
-    return pow(a, L - 2, L)
+    """a^-1 mod ℓ (zero -> zero), in the native library."""
+    return batch_invert([a])[0]
 
 
 def batch_invert(xs: list[int]) -> list[int]:
-    """Montgomery-trick batch inversion mod ℓ (upstream Scalar::batch_invert).
-    Zero entries invert to zero."""
+    """Montgomery-trick batch inversion mod ℓ (upstream Scalar::batch_invert)
+    in the native library.  Zero entries invert to zero."""
+    n = len(xs)
+    buf = b"".join((int(x) % L).to_bytes(32, "little") for x in xs)
+    out = ctypes.create_string_buffer(max(32 * n, 1))
+    native.lib().scl_batch_invert(buf, n, out)
+    raw = out.raw
+    return [int.from_bytes(raw[32 * i: 32 * i + 32], "little")
+            for i in range(n)]
+
+
+def invert_plain(a: int) -> int:
+    """invert's pure-Python twin."""
+    return pow(a, L - 2, L)
+
+
+def batch_invert_plain(xs: list[int]) -> list[int]:
+    """batch_invert's pure-Python twin.  Zero entries invert to zero."""
+    xs = [int(x) % L for x in xs]
     n = len(xs)
     prefix = [1] * (n + 1)
     for i, x in enumerate(xs):

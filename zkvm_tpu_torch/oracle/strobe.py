@@ -2,8 +2,9 @@
 
 Upstream counterpart: merlin/src/strobe.rs (a minimal STROBE-128 with only the
 ops Merlin needs: meta-AD, AD, PRF, KEY).  Rate R = 166 bytes over Keccak-f[1600].
-Bit-exact parity with upstream is pinned by the Merlin known-answer test
-(tests/test_merlin.py).
+Bit-exact parity with upstream is pinned by the Merlin known-answer test.
+The port's transcripts run on native.NativeStrobe128 (native/strobe.cpp);
+this pure-Python Strobe128 is its twin, with the same interface.
 """
 
 from .keccak import keccak_f1600_bytes
@@ -102,3 +103,19 @@ class Strobe128:
     def key(self, data: bytes, more: bool):
         self._begin_op(FLAG_A | FLAG_C, more)
         self._overwrite(data)
+
+    # -- Merlin's framing (native.NativeStrobe128 fuses each into one call)
+    def append_message(self, label: bytes, message: bytes):
+        self.meta_ad(label, False)
+        self.meta_ad(len(message).to_bytes(4, "little"), True)
+        self.ad(message, False)
+
+    def challenge_bytes(self, label: bytes, n: int) -> bytes:
+        self.meta_ad(label, False)
+        self.meta_ad(n.to_bytes(4, "little"), True)
+        return self.prf(n, False)
+
+    def state_bytes(self) -> bytes:
+        """state[200], pos, pos_begin, cur_flags (the native state's layout)."""
+        return bytes(self.state) + bytes([self.pos, self.pos_begin,
+                                          self.cur_flags])

@@ -13,7 +13,7 @@ from dataclasses import dataclass
 from ..constants import L
 from ..oracle import scalar
 from .errors import FormatError
-from .scalarvec import ScalarVec
+from .scalarvec import PlainScalarVec, ScalarVec
 
 
 @dataclass
@@ -27,6 +27,15 @@ class InnerProductProof:
         """Replay the round challenges on `transcript` (each L and R is
         checked on the host to be 32 bytes and not the identity encoding)
         and return scalars_from_challenges' (u_sq, u_inv_sq, s)."""
+        return self.scalars_from_challenges(
+            self._round_challenges(n, transcript))
+
+    def verification_scalars_vec_plain(self, n: int, transcript):
+        """verification_scalars_vec's twin (pure-Python scalar arithmetic)."""
+        return self.scalars_from_challenges_plain(
+            self._round_challenges(n, transcript))
+
+    def _round_challenges(self, n: int, transcript) -> list[int]:
         lg_n = len(self.L_vec)
         if lg_n >= 32:
             raise FormatError("inner product proof too large")
@@ -38,23 +47,32 @@ class InnerProductProof:
             transcript.validate_and_append_point(b"L", Lb)
             transcript.validate_and_append_point(b"R", Rb)
             challenges.append(transcript.challenge_scalar(b"u"))
-        return self.scalars_from_challenges(challenges)
+        return challenges
 
     def scalars_from_challenges(self, challenges: list[int]):
         """u_j^2, u_j^-2 and the s-vector, s_i = Π_j u_j^(±1) by the bits
-        of i, as a packed ScalarVec (upstream verification_scalars)."""
+        of i, as a packed ScalarVec (upstream verification_scalars), in
+        the native library."""
+        return self._scalars(challenges, scalar.batch_invert, ScalarVec)
+
+    def scalars_from_challenges_plain(self, challenges: list[int]):
+        """scalars_from_challenges' pure-Python twin (a PlainScalarVec)."""
+        return self._scalars(challenges, scalar.batch_invert_plain,
+                             PlainScalarVec)
+
+    def _scalars(self, challenges, batch_invert, sv_type):
         lg_n = len(self.L_vec)
-        challenges_inv = scalar.batch_invert(challenges)
+        challenges_inv = batch_invert(challenges)
         allinv = 1
         for ci in challenges_inv:
             allinv = allinv * ci % L
         u_sq = [u * u % L for u in challenges]
         u_inv_sq = [u * u % L for u in challenges_inv]
         # s[2^j .. 2^(j+1)) = s[0 .. 2^j) * u_sq[lg_n - 1 - j]
-        sv = ScalarVec.from_ints([allinv])
+        sv = sv_type.from_ints([allinv])
         for j in range(lg_n):
             scaled = sv.scale(u_sq[(lg_n - 1) - j])
-            sv = ScalarVec(sv.buf + scaled.buf, 2 * sv.n)
+            sv = sv_type(sv.buf + scaled.buf, 2 * sv.n)
         return u_sq, u_inv_sq, sv
 
     def to_bytes(self) -> bytes:

@@ -17,10 +17,11 @@ from ...oracle.ristretto import RistrettoPoint, decompress_many
 from ..engine import Engine, resolve_engine
 from ..errors import R1CSError, VerificationError
 from ..generators import BulletproofGens, PedersenGens
-from ..scalarvec import ScalarVec
+from ..scalarvec import PlainScalarVec, ScalarVec
 from ..transcript import ProofTranscript
 from ..util import next_power_of_two
-from .constraint_system import Metrics, flatten_constraints
+from .constraint_system import (Metrics, flatten_constraints,
+                                flatten_constraints_vec)
 from .lc import LinearCombination, Variable, _as_lc
 from .proof import R1CSProof
 
@@ -118,7 +119,21 @@ class Verifier:
         bs, g_vec, h_vec, padded_n), the G/H scalars as ScalarVecs.  The
         dynamic points stay raw 32-byte encodings, in the order A_I1, A_O1,
         S1, A_I2, A_O2, S2, T_1, T_3..T_6, V.., L.., R..; the device decode
-        validates them, so an invalid encoding rejects there."""
+        validates them, so an invalid encoding rejects there.  The flatten,
+        the inversions and the ScalarVec arithmetic run in the native
+        library."""
+        return self._split_vec(proof, bp_gens, plain=False)
+
+    def verification_job_split_vec_plain(
+        self, proof: R1CSProof, bp_gens: BulletproofGens,
+        pc_gens: PedersenGens,
+    ):
+        """verification_job_split_vec's pure-Python twin (flatten_constraints,
+        PlainScalarVec); the transcript is the verifier's own."""
+        return self._split_vec(proof, bp_gens, plain=True)
+
+    def _split_vec(self, proof: R1CSProof, bp_gens: BulletproofGens,
+                   plain: bool):
         ts = self.transcript
         ts.append_u64(b"m", self.num_v)
 
@@ -154,8 +169,16 @@ class Verifier:
         if bp_gens.gens_capacity < padded_n:
             raise R1CSError("invalid generators length")
 
-        wL, wR, wO, wV, wc = flatten_constraints(
-            self.constraints, z, n, self.num_v)
+        if plain:
+            wL, wR, wO, wV, wc = flatten_constraints(
+                self.constraints, z, n, self.num_v)
+            sv_type, invert = PlainScalarVec, scalar.invert_plain
+            sv_wL, sv_wR, sv_wO = (PlainScalarVec.from_ints(w + [0] * pad)
+                                   for w in (wL, wR, wO))
+        else:
+            sv_wL, sv_wR, sv_wO, wV, wc = flatten_constraints_vec(
+                self.constraints, z, n, self.num_v, pad)
+            sv_type, invert = ScalarVec, scalar.invert
 
         for i in (1, 3, 4, 5, 6):
             ts.validate_and_append_point(
@@ -171,24 +194,22 @@ class Verifier:
         # verifier-local weight combining the t-check and P-check
         c = ts.build_rng().finalize(b"\x00" * 32).random_scalar()
 
-        u_sq, u_inv_sq, sv_s = proof.ipp_proof.verification_scalars_vec(
-            padded_n, ts)
+        ipp = proof.ipp_proof
+        u_sq, u_inv_sq, sv_s = (
+            ipp.verification_scalars_vec_plain(padded_n, ts) if plain
+            else ipp.verification_scalars_vec(padded_n, ts))
         a, b = proof.ipp_proof.a % L, proof.ipp_proof.b % L
 
-        y_inv = scalar.invert(y)
-        sv_yinv = ScalarVec.powers(y_inv, padded_n)
-        sv_wL = ScalarVec.from_ints(wL + [0] * pad)
-        sv_wO = ScalarVec.from_ints(wO + [0] * pad)
-        sv_wR = ScalarVec.from_ints(wR + [0] * pad)
+        sv_yinv = sv_type.powers(invert(y), padded_n)
         one_b = (1).to_bytes(32, "little")
-        sv_fac = ScalarVec(
+        sv_fac = sv_type(
             one_b * n1 + (u % L).to_bytes(32, "little") * (n2 + pad),
             padded_n)
-        ones = ScalarVec(one_b * padded_n, padded_n)
+        ones = sv_type(one_b * padded_n, padded_n)
 
         yneg_wR = sv_yinv.mul(sv_wR)
-        delta = ScalarVec(yneg_wR.buf[: 32 * n], n).inner(
-            ScalarVec(sv_wL.buf[: 32 * n], n))
+        delta = sv_type(yneg_wR.buf[: 32 * n], n).inner(
+            sv_type(sv_wL.buf[: 32 * n], n))
         # g_i = fac_i · (x·yneg_wR_i − a·s_i)
         g_v = yneg_wR.scale(x).sub(sv_s.scale(a)).mul(sv_fac)
         # h_i = fac_i · (y^{-i}·(x·wL_i + wO_i − b·s_inv_i) − 1)

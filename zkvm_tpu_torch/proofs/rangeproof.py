@@ -9,6 +9,12 @@ kernels/batch_verify_device.py synthesizes the scalars on the card;
 otherwise, and for one aggregated proof (verify_multiple), the host
 assembles the MSM as the JAX package does and an Engine (proofs/engine.py,
 kernels/engine.py) checks it on the card.
+
+The host work runs in the port's C++ library (native/): the transcript
+replay (strobe.cpp rangeproof_replay), the scalar assembly
+(scalarvec.cpp rangeproof_scalar_assembly) and the decode.  The *_plain
+methods and batch_verification_job_plain are the pure-Python twins that
+the tests and chip_smoke.py hold them against.
 """
 
 from __future__ import annotations
@@ -17,15 +23,19 @@ import hashlib
 import time
 from dataclasses import dataclass
 
-from ..constants import L
+from .. import native
+from ..constants import L, LABEL_IPP, LABEL_RANGEPROOF
 from ..oracle import scalar
-from ..oracle.ristretto import RistrettoPoint, decompress_many
+from ..oracle.ristretto import (RistrettoPoint, decompress_many,
+                                decompress_many_plain)
 from .engine import Engine, resolve_engine
 from .errors import FormatError, ProofError, VerificationError
 from .generators import BulletproofGens, PedersenGens
 from .ipp import InnerProductProof
-from .scalarvec import ScalarVec
+from .scalarvec import PlainScalarVec, ScalarVec
 from .transcript import ProofTranscript
+
+IDENTITY_ERROR = "point validation failed: identity"
 
 
 def delta(n: int, m: int, y: int, z: int) -> int:
@@ -62,17 +72,9 @@ class RangeProof:
             + list(value_commitments)
         )
 
-    def _replay_challenges(
-        self,
-        bp_gens: BulletproofGens,
-        pc_gens: PedersenGens,
-        transcript: ProofTranscript,
-        value_commitments: list[bytes],
-        n: int,
-    ) -> dict:
-        """Validate the proof's structure and replay the verification
-        transcript; returns {"y", "z", "x", "w", "c", "u"}, the challenges
-        from which the device synthesizes every vector scalar."""
+    def _check_shape(self, bp_gens: BulletproofGens,
+                     value_commitments: list[bytes], n: int) -> int:
+        """The structural checks that precede a replay; -> lg(n m)."""
         m = len(value_commitments)
         if n not in (8, 16, 32, 64):
             raise FormatError("invalid bitsize")
@@ -85,9 +87,54 @@ class RangeProof:
         for pb in self.dyn_compressed(value_commitments):
             if len(pb) != 32:
                 raise ProofError("point validation failed: bad length")
-        if len(self.ipp_proof.L_vec) != lg_nm or n * m != 1 << lg_nm:
+        if (len(self.ipp_proof.L_vec) != lg_nm
+                or len(self.ipp_proof.R_vec) != lg_nm or n * m != 1 << lg_nm):
             raise FormatError("inner product proof size mismatch")
+        return lg_nm
 
+    def replay_header(self) -> bytes:
+        """A, S, T_1, T_2, t_x, t_x_blinding, e_blinding: the wire's first
+        224 bytes, which the native replay reads."""
+        return (self.A + self.S + self.T_1 + self.T_2
+                + scalar.to_bytes(self.t_x)
+                + scalar.to_bytes(self.t_x_blinding)
+                + scalar.to_bytes(self.e_blinding))
+
+    def _replay_challenges(
+        self,
+        bp_gens: BulletproofGens,
+        pc_gens: PedersenGens,
+        transcript: ProofTranscript,
+        value_commitments: list[bytes],
+        n: int,
+    ) -> dict:
+        """Validate the proof's structure and replay the verification
+        transcript in one native call; returns {"y", "z", "x", "w", "c",
+        "u"}, the challenges from which the device synthesizes every vector
+        scalar.  A zero A, S, T_1, T_2, L or R raises ProofError, as
+        validate_and_append_point does."""
+        lg = self._check_shape(bp_gens, value_commitments, n)
+        rc, raw = native.rangeproof_replay(
+            transcript.strobe, LABEL_RANGEPROOF, LABEL_IPP, n,
+            len(value_commitments), b"".join(value_commitments),
+            self.replay_header(),
+            b"".join(lb + rb for lb, rb in zip(self.ipp_proof.L_vec,
+                                               self.ipp_proof.R_vec)), lg)
+        if rc != 0:
+            raise ProofError(IDENTITY_ERROR)
+        return challenges_from_blob(raw, lg)
+
+    def _replay_challenges_plain(
+        self,
+        bp_gens: BulletproofGens,
+        pc_gens: PedersenGens,
+        transcript: ProofTranscript,
+        value_commitments: list[bytes],
+        n: int,
+    ) -> dict:
+        """_replay_challenges' twin: the transcript operations one by one."""
+        m = len(value_commitments)
+        self._check_shape(bp_gens, value_commitments, n)
         transcript.rangeproof_domain_sep(n, m)
         for V in value_commitments:
             transcript.append_point(b"V", V)
@@ -118,38 +165,53 @@ class RangeProof:
     def _job_parts(self, bp_gens: BulletproofGens, pc_gens: PedersenGens,
                    transcript: ProofTranscript, value_commitments: list[bytes],
                    n: int, decompressed: list | None = None) -> "_JobParts":
-        """Replay the transcript and emit the mega-check MSM's sections,
-        the g/h columns as packed ScalarVecs (the JAX package's ScalarVec
-        chain, its ground truth):
+        """Replay the transcript and emit the mega-check MSM's sections, the
+        g/h columns as packed ScalarVecs, in the native library
+        (rangeproof_scalar_assembly):
             g_i = -z - a s_i,   h_i = z + y^-i (z^2 z_and_2_i - b / s_i).
         Point encodings are decoded on the host (ValueError on an invalid
         one) unless `decompressed` brings them."""
         m = len(value_commitments)
         rep = self._replay_challenges(bp_gens, pc_gens, transcript,
                                       value_commitments, n)
-        y, z, x, w, c, u = (rep[k] for k in ("y", "z", "x", "w", "c", "u"))
-        a, b = self.ipp_proof.a % L, self.ipp_proof.b % L
-        zz = z * z % L
-        u_sq, u_inv_sq, s_v = self.ipp_proof.scalars_from_challenges(u)
-        exp_y_inv_v = ScalarVec.powers(scalar.invert(y), n * m)
-        exp_2_v = ScalarVec.powers(2, n)
-        z_pows = [pow(z, j, L) for j in range(m)]
-        z2_v = ScalarVec.concat(*(exp_2_v.scale(zj) for zj in z_pows))
-        g_v = s_v.axpb(-a, -z)
-        h_v = (z2_v.scale(zz).sub(s_v.reverse().scale(b)).mul(exp_y_inv_v)
-               .axpb(1, z))
-        b_s = (w * ((self.t_x - a * b) % L)
-               + c * ((delta(n, m, y, z) - self.t_x) % L)) % L
-        cx = c * x % L
-        head = [1, x, cx, cx * x % L] + list(u_sq) + list(u_inv_sq)
+        asm = scalar_assembly(rep["u"], n, m, rep["y"], rep["z"],
+                              self.ipp_proof.a, self.ipp_proof.b)
         if decompressed is None:
             decompressed = decompress_many(
                 self.dyn_compressed(value_commitments))
+        return self._parts(rep, m, *asm, decompressed)
+
+    def _job_parts_plain(self, bp_gens: BulletproofGens,
+                         pc_gens: PedersenGens, transcript: ProofTranscript,
+                         value_commitments: list[bytes], n: int,
+                         decompressed: list | None = None) -> "_JobParts":
+        """_job_parts' twin: the Python replay and the PlainScalarVec chain
+        (the JAX package's ScalarVec chain, its ground truth)."""
+        m = len(value_commitments)
+        rep = self._replay_challenges_plain(bp_gens, pc_gens, transcript,
+                                            value_commitments, n)
+        asm = scalar_assembly_plain(rep["u"], n, m, rep["y"], rep["z"],
+                                    self.ipp_proof.a, self.ipp_proof.b)
+        if decompressed is None:
+            decompressed = decompress_many_plain(
+                self.dyn_compressed(value_commitments))
+        return self._parts(rep, m, *asm, decompressed)
+
+    def _parts(self, rep: dict, m: int, u_sq, u_inv_sq, g_v, h_v,
+               delta_val: int, decompressed: list) -> "_JobParts":
+        """The sections shared by _job_parts and its twin."""
+        z, x, w, c = rep["z"], rep["x"], rep["w"], rep["c"]
+        a, b = self.ipp_proof.a % L, self.ipp_proof.b % L
+        zz = z * z % L
+        b_s = (w * ((self.t_x - a * b) % L)
+               + c * ((delta_val - self.t_x) % L)) % L
+        cx = c * x % L
+        head = [1, x, cx, cx * x % L] + list(u_sq) + list(u_inv_sq)
         k = len(head)
         return _JobParts(
             head=head, bb_s=(-self.e_blinding - c * self.t_x_blinding) % L,
             b_s=b_s, g_v=g_v, h_v=h_v,
-            v_s=[c * zz % L * zj % L for zj in z_pows],
+            v_s=[c * zz % L * pow(z, j, L) % L for j in range(m)],
             head_points=decompressed[:k], v_points=decompressed[k:])
 
     def verification_job(self, bp_gens: BulletproofGens,
@@ -224,6 +286,51 @@ class _JobParts:
     v_points: list      # V.. (decoded)
 
 
+def scalar_assembly(u: list[int], n: int, m: int, y: int, z: int, a: int,
+                    b: int):
+    """One proof's (u², u⁻², g, h, delta(y, z)) from its round challenges
+    u and y, z, a, b, in one native call (rangeproof_scalar_assembly):
+        s_i = Π_j u_j^(±1),   g_i = -z - a s_i,
+        h_i = z + y^-i (z^2 z^(i div n) 2^(i mod n) - b / s_i),
+    g and h as ScalarVecs.  A zero challenge inverts to zero."""
+    lg, nm = len(u), n * m
+    raw = native.rangeproof_scalar_assembly(
+        b"".join(scalar.to_bytes(v) for v in u), lg, n, m, y, z, a, b)
+    ints = [int.from_bytes(raw[32 * i: 32 * i + 32], "little")
+            for i in range(2 * lg)]
+    return (ints[:lg], ints[lg:],
+            ScalarVec(raw[64 * lg: 32 * (2 * lg + nm)], nm),
+            ScalarVec(raw[32 * (2 * lg + nm): 32 * (2 * lg + 2 * nm)], nm),
+            int.from_bytes(raw[-32:], "little"))
+
+
+def scalar_assembly_plain(u: list[int], n: int, m: int, y: int, z: int,
+                          a: int, b: int):
+    """scalar_assembly's pure-Python twin: the JAX package's ScalarVec
+    chain (PlainScalarVecs)."""
+    y, z, a, b = y % L, z % L, a % L, b % L
+    zz = z * z % L
+    ipp = InnerProductProof([b""] * len(u), [b""] * len(u), a, b)
+    u_sq, u_inv_sq, s_v = ipp.scalars_from_challenges_plain(u)
+    exp_y_inv_v = PlainScalarVec.powers(scalar.invert_plain(y), n * m)
+    exp_2_v = PlainScalarVec.powers(2, n)
+    z_pows = [pow(z, j, L) for j in range(m)]
+    z2_v = PlainScalarVec.concat(*(exp_2_v.scale(zj) for zj in z_pows))
+    g_v = s_v.axpb(-a, -z)
+    h_v = (z2_v.scale(zz).sub(s_v.reverse().scale(b)).mul(exp_y_inv_v)
+           .axpb(1, z))
+    return u_sq, u_inv_sq, g_v, h_v, delta(n, m, y, z)
+
+
+def challenges_from_blob(raw: bytes, lg: int) -> dict:
+    """The native replay's (5 + lg) 32-byte challenges y, z, x, w, c, u..
+    as {"y", "z", "x", "w", "c", "u"}."""
+    v = [int.from_bytes(raw[32 * i: 32 * i + 32], "little")
+         for i in range(5 + lg)]
+    return {"y": v[0], "z": v[1], "x": v[2], "w": v[3], "c": v[4],
+            "u": v[5:]}
+
+
 def batch_weight(entropy: bytes, idx: int, wire: bytes) -> int:
     """The random weight of proof `idx` of a batch (the JAX package's):
     SHA3-512(entropy || idx as u64 || wire) reduced mod ℓ."""
@@ -242,8 +349,26 @@ def batch_verification_job(proofs: list[RangeProof], bp_gens: BulletproofGens,
     times its random weight, in one MSM (scalars, points) that must sum to
     the identity.  The static columns B_blinding, B, G(n, max m), H(n,
     max m) are shared, so the MSM has 2 + 2 n max_m + Σ_p (4 + 2 lg(n m_p)
-    + m_p) points.  Every encoding is decoded on the host first
-    (ValueError on an invalid one)."""
+    + m_p) points.  Every encoding is decoded on the host first, in one
+    native call (ValueError on an invalid one); each proof's replay and
+    scalars run in the native library."""
+    return _batch_job(proofs, bp_gens, pc_gens, transcripts,
+                      value_commitments, n, entropy, RangeProof._job_parts,
+                      decompress_many, ScalarVec)
+
+
+def batch_verification_job_plain(proofs, bp_gens, pc_gens, transcripts,
+                                 value_commitments, n,
+                                 entropy: bytes = b"\x01" * 32):
+    """batch_verification_job's pure-Python twin (a PlainScalarVec)."""
+    return _batch_job(proofs, bp_gens, pc_gens, transcripts,
+                      value_commitments, n, entropy,
+                      RangeProof._job_parts_plain, decompress_many_plain,
+                      PlainScalarVec)
+
+
+def _batch_job(proofs, bp_gens, pc_gens, transcripts, value_commitments, n,
+               entropy, job_parts, decode, sv_type):
     if not proofs or not (len(proofs) == len(transcripts)
                           == len(value_commitments)):
         raise FormatError("empty batch, or proofs, transcripts and value "
@@ -252,8 +377,8 @@ def batch_verification_job(proofs: list[RangeProof], bp_gens: BulletproofGens,
     nm_max = n * max_m
     static_points = ([pc_gens.B_blinding, pc_gens.B] + bp_gens.G(n, max_m)
                      + bp_gens.H(n, max_m))
-    all_dyn = decompress_many([enc for p, vcs in zip(proofs, value_commitments)
-                               for enc in p.dyn_compressed(vcs)])
+    all_dyn = decode([enc for p, vcs in zip(proofs, value_commitments)
+                      for enc in p.dyn_compressed(vcs)])
     # static scalars accumulate as ints (reduced once, at the end)
     static_acc = [0] * (2 + 2 * nm_max)
     dyn_scalars: list[int] = []
@@ -262,8 +387,8 @@ def batch_verification_job(proofs: list[RangeProof], bp_gens: BulletproofGens,
     for idx, (proof, transcript, vcs) in enumerate(
             zip(proofs, transcripts, value_commitments)):
         k = len(proof.dyn_compressed(vcs))
-        p = proof._job_parts(bp_gens, pc_gens, transcript, vcs, n,
-                             decompressed=all_dyn[off: off + k])
+        p = job_parts(proof, bp_gens, pc_gens, transcript, vcs, n,
+                      decompressed=all_dyn[off: off + k])
         off += k
         wt = batch_weight(entropy, idx, proof.to_bytes())
         dyn_scalars.extend(s * wt % L for s in p.head + p.v_s)
@@ -274,7 +399,7 @@ def batch_verification_job(proofs: list[RangeProof], bp_gens: BulletproofGens,
             static_acc[i] += wt * g
         for i, h in enumerate(p.h_v.to_ints(), 2 + nm_max):
             static_acc[i] += wt * h
-    return (ScalarVec.from_ints(static_acc + dyn_scalars),
+    return (sv_type.from_ints(static_acc + dyn_scalars),
             static_points + dyn_points)
 
 

@@ -2,13 +2,15 @@
 
     python3 chip_smoke.py
 
-1. prints the card's name and power limit, builds the thirteen CUDA
+1. prints the card's name and power limit, builds the seventeen CUDA
    kernels (K1 ristretto_decode, K2 bucket_accumulate, K3 bucket_fold, K4
    horner_check, K5 seg_combine, K6 point_add, K7 fe_mul, K8 fe_add, K9
    radix_sort, K10 gather_words, K11 bucket_accumulate_words, K12
-   bucket_accumulate_affine, and the small route's K5s small_scan) from
-   kernels/csrc, one nvcc per source in parallel (K11 and K12 are entries
-   of K2's source), and prints the build time and each kernel function's
+   bucket_accumulate_affine, the small route's K5s small_scan, and the
+   micro-kernels K13 micro_mul, K14 micro_parts, K15 micro_add_chain, K16
+   micro_add_chain_lanes) from kernels/csrc, one nvcc per source in
+   parallel (K11 and K12 are entries of K2's source, K13-K16 of
+   field_micro.cu), and prints the build time and each kernel function's
    ptxas registers and spills;
 1b. builds the native host library (zkvm_tpu_torch/native, g++
    -march=native on this machine) and prints its build time beside
@@ -77,6 +79,20 @@
 8. with every launch count set to 0, calls the entry points
    pointwise.seg_combine, point_add, mul and add (K5-K8; on no verify
    path);
+8b. holds the micro-kernels K13-K16 (the counterparts of
+   bench/pallas_micro.py) bit for bit against their plain versions in
+   every form and variant at depth 1 and 8, at B = 4,096 and 4,099 (a
+   partial five-lane group and four-lane warp), and at B = 2^16, depth 1
+   (timed: the kernels line); prints the wide multiplies (IMAD.WIDE,
+   IMAD.HI) of each function in field_micro's SASS (cuobjdump), which
+   must hold prod's and fe_mul's 100 products; then, with every launch
+   count set to 0, runs the entry point (zkvm_tpu_torch.micro.run, every
+   variant): the reference's table at B = 2^16 (ms, device-only ms,
+   Mmul/s, Madd/s), the saturated rates at B = 2^20, depth 64 (products
+   alone, fe_mul and lf_mul; products alone beside the guide's peak of
+   wide products at the logged SM clock), and one warp's time a
+   dependent step of fe_mul, lf_mul, pt_add and lane_add, every output
+   held whole against its twin;
 9. with every launch count set to 0, runs the engine path
    (kernels/engine.py TorchEngine): a batch of 1,024 proofs of mixed
    aggregation (256 each of m = 1, 2, 4, 8) through batch_verify, then
@@ -128,6 +144,10 @@ MEM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 # 33.5e12 multiply-adds/s) bounds 32-bit multiply-adds, and a 64-bit
 # product takes two (its low and high halves).
 PRODUCTS_PER_S = 67e12 / 2 / 2
+# The CUDA C++ Programming Guide's throughput table (arithmetic
+# instructions) gives compute capability 9.0 64 32-bit integer multiplies
+# or multiply-adds a clock per SM; a 32x32->64 product takes two.
+WIDE_PRODUCTS_PER_CLOCK_SM = 64 / 2
 MUL, SQR = 100, 55              # products per field multiplication, square
 ADD, DBL = 9 * MUL, 4 * SQR + 4 * MUL   # per point addition, doubling
 DECODE = 257 * SQR + 24 * MUL   # per Ristretto decode
@@ -195,10 +215,13 @@ def radix_launches(lo_bit, hi_bit):
             "radix_scatter_kernel": k}
 
 
-def bound_ms(nbytes, products):
+def bound_ms(nbytes, products, products_per_s=PRODUCTS_PER_S):
+    """(bound ms, "bytes" or "operations", nbytes, products): the larger of
+    the bytes over the memory rate and the products over products_per_s."""
     by_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-    by_ops = products / PRODUCTS_PER_S * 1e3
-    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+    by_ops = products / products_per_s * 1e3
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations", nbytes, products)
 
 
 def ptxas_report(build, src):
@@ -220,6 +243,25 @@ def ptxas_report(build, src):
         elif "Used" in line:
             out.append((fn, f"{line.split(':', 1)[-1].strip()}; {spill}"))
     return out
+
+
+def sass_multiplies(build, src):
+    """{kernel function: [wide multiplies (IMAD.WIDE, IMAD.HI), other
+    IMADs]} in the SASS of library `src` (cuobjdump -sass, beside the
+    toolkit's nvcc)."""
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build.lib_path(src))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"\d+([a-z_]+_kernel)", line)
+            fn = m[1] if m else line.split("Function :")[1].strip()
+            counts[fn] = [0, 0]
+        elif fn and re.search(r"\bIMAD\b", line):
+            counts[fn][0 if re.search(r"\bIMAD\.(WIDE|HI)\b", line)
+                       else 1] += 1
+    return counts
 
 
 def max_abs_err(a, b):
@@ -531,8 +573,10 @@ def main():
     if sys.argv[1:] == ["--launch-check"]:
         return launch_check()
     from zkvm_tpu_torch import fixture
+    from zkvm_tpu_torch import micro as micro_bench
+    from zkvm_tpu_torch.convert import from_jax_limbs13
     from zkvm_tpu_torch.kernels import (_build, combine, decompress, gather,
-                                        msm, pointwise, sort)
+                                        micro, msm, pointwise, sort)
     from zkvm_tpu_torch.kernels import batch_verify_device as bvd
     from zkvm_tpu_torch.kernels import field as F
     from zkvm_tpu_torch.kernels import scalarmod as sm
@@ -1094,7 +1138,8 @@ def main():
                pointwise.point_add, pointwise.mul, pointwise.add,
                sort.radix_sort, gather.gather_words,
                msm.bucket_accumulate_words, msm.bucket_accumulate_affine,
-               msm.small_scan]
+               msm.small_scan, micro.micro_mul, micro.micro_parts,
+               micro.micro_add_chain, micro.micro_add_chain_lanes]
 
     def reset():
         for k in kernels:
@@ -1340,7 +1385,7 @@ def main():
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    require(counts() == [0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1],
+    require(counts() == [0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0],
             f"window_totals_small launched {counts()}, not K5s and K3 once")
     child = subprocess.run([sys.executable, os.path.abspath(__file__),
                             "--launch-check"], capture_output=True, text=True,
@@ -1548,6 +1593,108 @@ def main():
             f"the entry points did not launch K5-K8: {entry}")
 
     mark("8 (entry points)")
+
+    # --------------------------------------------------------- phase 8b
+    # K13-K16, the field and point micro-kernels: bit for bit against their
+    # twins in every form and variant at depth 1 and 8, at B = 4,096 and
+    # 4,099 (a partial five-lane group and a partial four-lane warp), on
+    # the reference's inputs (random 13-bit limbs, reduced mod p)
+    rs8 = np.random.default_rng(2027)
+
+    def micro_inputs(nb8):
+        fe = [from_jax_limbs13(micro_bench.rand_limbs(rs8, nb8), dev)
+              for _ in range(10)]
+        return fe[0], fe[1], torch.stack(fe[2:6]), torch.stack(fe[6:])
+
+    micro_cases = {   # name: (kernel, plain, points?)
+        f"K13 {form}": (
+            lambda x, y, d, form=form: micro.micro_mul(x, y, d, form),
+            micro.micro_mul_plain, False) for form in micro.MUL_FORMS}
+    micro_cases.update({
+        f"K14 {v}": (lambda x, y, d, v=v: micro.micro_parts(x, y, v, d),
+                     lambda x, y, d, v=v: micro.micro_parts_plain(x, y, v, d),
+                     False) for v in micro.PARTS})
+    micro_cases["K15"] = (micro.micro_add_chain, micro.micro_add_chain_plain,
+                          True)
+    micro_cases["K16"] = (micro.micro_add_chain_lanes,
+                          micro.micro_add_chain_lanes_plain, True)
+    for nb8 in (4096, 4099):
+        fa, fb, pp, pq = micro_inputs(nb8)
+        for name, (kern, plain, pts) in micro_cases.items():
+            x, y = (pp, pq) if pts else (fa, fb)
+            for depth in (1, 8):
+                got, want = kern(x, y, depth), plain(x, y, depth)
+                torch.cuda.synchronize()
+                require(got.dtype == want.dtype and torch.equal(got, want),
+                        f"{name} differs from its plain version at B = "
+                        f"{nb8}, depth {depth}")
+    print(f"K13-K16: equal to their twins in {len(micro_cases)} forms and "
+          "variants at depth 1 and 8, B = 4,096 and 4,099", flush=True)
+    # the kernels line's shapes: the reference's B = 2^16, depth 1 (K14 as
+    # prod, its products alone), against the twins on the same inputs
+    b8 = 1 << 16
+    fa, fb, pp, pq = micro_inputs(b8)
+    line_cases = {
+        "K13": ("K13 thread", fa, fb, bound_ms(b8 * 3 * 40, b8 * MUL)),
+        "K14": ("K14 prod", fa, fb, bound_ms(b8 * (80 + 80), b8 * MUL)),
+        "K15": ("K15", pp, pq, bound_ms(b8 * 3 * 160, b8 * ADD)),
+        "K16": ("K16", pp, pq, bound_ms(b8 * 3 * 160, b8 * ADD))}
+    for k, (name, x, y, bound) in line_cases.items():
+        kern, plain, _ = micro_cases[name]
+        got, want = kern(x, y, 1), plain(x, y, 1)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want),
+                f"{name} differs from its plain version at B = 2^16")
+        results[k] = dict(err=max_abs_err(got, want),
+                          ms=cuda_ms(lambda: kern(x, y, 1), 20),
+                          plain_ms=cuda_ms(lambda: plain(x, y, 1), 2),
+                          bound=bound)
+        print(f"{k} ({name}, B = 2^16, depth 1): kernel_ms="
+              f"{results[k]['ms']:.4f} plain_ms={results[k]['plain_ms']:.2f} "
+              f"bound_ms={bound[0]:.5f} ({bound[1]}) "
+              f"max_abs_err={results[k]['err']}", flush=True)
+    imads = sass_multiplies(_build, "field_micro")
+    print("field_micro SASS by function, [wide multiplies (IMAD.WIDE, "
+          "IMAD.HI), other IMADs], beside the 100 products of one fe_mul "
+          "(20 a lane in lf_mul's five-lane form; 9 multiplications a point "
+          "addition): " + json.dumps(imads), flush=True)
+    require(all(imads.get(f, [0])[0] >= MUL for f in ("prod_kernel",
+                                                      "mul_thread_kernel")),
+            f"nvcc dropped products of prod or fe_mul: {imads}")
+
+    # the entry point python -m zkvm_tpu_torch.micro (every variant), with
+    # every launch count set to 0: the reference's table at B = 2^16, the
+    # saturated rates at B = 2^20, depth 64, one warp's dependent steps
+    reset()
+    micro_rows = micro_bench.run()
+    micro_path = counts()
+    require(all(micro_path[i] > 0 for i in (13, 14, 15, 16)),
+            f"the micro-benchmark did not launch K13-K16: {micro_path}")
+
+    def micro_row(name, n, depth):
+        return next(r for r in micro_rows if r.get("name") == name
+                    and r["B"] == n and r["depth"] == depth)
+
+    prod_row = micro_row("parts prod", 1 << 20, 64)
+    mul_row = micro_row("mul thread chain", 1 << 20, 64)
+    lanes_row = micro_row("mul lanes chain", 1 << 20, 64)
+    # the guide's peak of wide products at the SM clock logged after prod
+    guide_peak = (WIDE_PRODUCTS_PER_CLOCK_SM * prod_row["sm_mhz"] * 1e6
+                  * torch.cuda.get_device_properties(0).multi_processor_count)
+    print(f"saturated (B = 2^20, depth 64): products alone, achieved "
+          f"{prod_row['rate'] * 1e9:.4g}/s (prod, {prod_row['rate_from']}) "
+          f"against the guide's peak {guide_peak:.4g}/s at "
+          f"{prod_row['sm_mhz']} MHz; "
+          f"fe_mul {mul_row['rate'] * 1e6:.4g}/s, so "
+          f"{mul_row['rate'] * 1e6 * MUL:.4g} products/s with their carries "
+          f"({mul_row['rate_from']}); lf_mul {lanes_row['rate'] * 1e6:.4g}/s;"
+          f" the model PRODUCTS_PER_S = {PRODUCTS_PER_S:.4g} [{smi}]",
+          flush=True)
+    print("one warp, ns a dependent step: " + json.dumps(
+        {r["step"]: round(r["ns_per_step"], 1) for r in micro_rows
+         if "step" in r}) + f" [{smi}]", flush=True)
+
+    mark("8b (micro, K13-K16)")
 
     # ---------------------------------------------------------- phase 9
     # 1,024 proofs, 256 each of m = 1, 2, 4, 8, tiled from the fixtures
@@ -1819,8 +1966,8 @@ def main():
     print(f"aggregated_key MSM (2 points, w = {ak_w}) by stage, mean of 20: "
           f"window totals on the card {1e3 * ak_card:.3f} ms, fetch + host "
           f"Horner {1e3 * ak_host:.3f} ms [{smi}]", flush=True)
-    launches = [sum(c) for c in zip(range_path, r1cs_path, entry, engine_path,
-                                    tx_path)]
+    launches = [sum(c) for c in zip(range_path, r1cs_path, entry, micro_path,
+                                    engine_path, tx_path)]
     require(all(c > 0 for c in launches), f"a kernel never launched: {launches}")
 
     mark("10 (tx path)")
@@ -1856,6 +2003,16 @@ def main():
         ("K5s", "small_scan", "small_scan.cu",
          "zkvm_tpu/kernels/pallas_msm.py:89 (seg_combine_lm in _bucket_totals'"
          " associative_scan, :252-307)"),
+        ("K13", "micro_mul", "field_micro.cu",
+         "bench/pallas_micro.py:97 (_pallas_binop: pf._mul_kernel, "
+         "_mul_kernel_roll, _chain_kernel_factory)"),
+        ("K14", "micro_parts", "field_micro.cu",
+         "bench/pallas_micro.py:202 (_pallas_binop_planes: the raw, prod, "
+         "carry, mul and chain planes kernels)"),
+        ("K15", "micro_add_chain", "field_micro.cu",
+         "bench/pallas_micro.py:290 (_make_add_chain_planes)"),
+        ("K16", "micro_add_chain_lanes", "field_micro.cu",
+         "bench/pallas_micro.py:338 (_make_add_chain)"),
     ]
     line = {"kernels": [
         {"name": name, "route": "cuda",
@@ -1866,6 +2023,16 @@ def main():
          "bound_by": results[key]["bound"][1],
          "library_ms": results[key].get("lib_ms")}
         for (key, name, src, rep), cnt in zip(table, launches)]}
+    # each kernel's share of its bound (bound ms / event ms) under the
+    # modelled products rate and under the guide's peak at the logged clock
+    # (phase 8b; K14 prod's achieved rate is not a peak)
+    print(f"shares of the bound, modelled {PRODUCTS_PER_S:.4g} / guide's "
+          f"peak {guide_peak:.4g} products/s [{smi}]: " + json.dumps({
+              key: [round(results[key]["ms"], 5),
+                    round(results[key]["bound"][0] / results[key]["ms"], 4),
+                    round(bound_ms(*results[key]["bound"][2:], guide_peak)[0]
+                          / results[key]["ms"], 4)]
+              for key, *_ in table}), flush=True)
     print("phase seconds: " + json.dumps(phase_s)
           + f"; in all {sum(phase_s.values()):.1f} s", flush=True)
     print(json.dumps(line))

@@ -15,7 +15,8 @@ import torch
 
 import zkvm_tpu_torch
 from zkvm_tpu_torch import fixture, native
-from zkvm_tpu_torch.kernels import (combine, decompress, gather, msm,
+from zkvm_tpu_torch import micro as micro_bench
+from zkvm_tpu_torch.kernels import (combine, decompress, gather, micro, msm,
                                     pointwise, sort)
 from zkvm_tpu_torch.kernels.engine import TorchEngine
 from zkvm_tpu_torch.parallel.tx_batch import fused_verify_tx_batch
@@ -27,7 +28,8 @@ from zkvm_tpu_torch.proofs.transcript import ProofTranscript
 from zkvm_tpu_torch.vm import Tx, verify_tx
 
 ROOT = Path(zkvm_tpu_torch.__file__).resolve().parent
-FORBIDDEN = ("jax", "jaxlib", "zkvm_tpu")
+# the JAX package, and its micro-benchmarks (bench/pallas_micro.py)
+FORBIDDEN = ("jax", "jaxlib", "zkvm_tpu", "bench", "pallas_micro")
 
 
 def _imports(path: Path):
@@ -76,6 +78,8 @@ def test_entry_point_without_device_needs_cuda():
         verify_tx(txs[0], BulletproofGens(1))
     with pytest.raises(RuntimeError, match="CUDA"):
         fused_verify_tx_batch(txs, BulletproofGens(1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        micro_bench.main([])
 
 
 def test_engine_entry_points_without_device_need_cuda():
@@ -141,6 +145,15 @@ def test_kernel_wrappers_refuse_non_cuda_devices(monkeypatch, tmp_path):
         pointwise.mul(fe, fe)
     with pytest.raises(ValueError, match="CUDA"):
         pointwise.add(fe, fe)
+    for form in micro.MUL_FORMS:
+        with pytest.raises(ValueError, match="CUDA"):
+            micro.micro_mul(fe, fe, 8, form)
+    for variant in micro.PARTS:
+        with pytest.raises(ValueError, match="CUDA"):
+            micro.micro_parts(fe, fe, variant, 8)
+    for chain in (micro.micro_add_chain, micro.micro_add_chain_lanes):
+        with pytest.raises(ValueError, match="CUDA"):
+            chain(pts, pts, 8)
     with pytest.raises(ValueError, match="CUDA"):
         msm.window_totals_small(pts, torch.zeros((64, 32), dtype=torch.int32,
                                                  device="meta"), 8)

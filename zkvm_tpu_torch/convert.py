@@ -1,5 +1,6 @@
 """Carries the device inputs of the JAX package's batch_msm_check,
-txbatch_msm_check and window_totals_from_words across.
+txbatch_msm_check and window_totals_from_words across, and its 13-bit
+field limbs (from_jax_limbs13).
 
 Both packages keep the same canonical word layouts at this boundary, so
 conversion is a reinterpretation of the uint32 words as int32 tensors on
@@ -9,8 +10,10 @@ the chosen device.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from .kernels.words import to_device
+from .kernels.field import OFFS, W, freeze
+from .kernels.words import bits_to_limbs, to_device
 
 
 def from_jax_arrays(static_words, dyn_words, params_words, bbB_words,
@@ -43,3 +46,27 @@ def from_jax_msm_words(point_words, scalar_words, device="cuda"):
     (identity points with zero scalars) may stay: it changes no sum."""
     return tuple(to_device(np.asarray(a, np.uint32), device)
                  for a in (point_words, scalar_words))
+
+
+def from_jax_limbs13(limbs, device="cuda"):
+    """The JAX package's field limbs as a numpy array — (20, ...) limbs of
+    13 bits, limb k weighing 2^(13 k), values up to 2^260 (above p) — ->
+    the port's (10, ...) int32 canonical limbs of each value mod p on
+    `device`.  The 260 bits are packed into words, bits 0-254 split into
+    the port's limbs, and bits 255-259 fold into limb 0 as 19 times their
+    value (2^255 = 19 mod p) before the canonical reduction."""
+    x = np.asarray(limbs)
+    if x.shape[0] != 20 or ((x < 0) | (x >= 1 << 13)).any():
+        raise ValueError("expected 20 limbs of 13 bits each")
+    x = x.astype(np.uint64)
+    words = np.zeros((9,) + x.shape[1:], np.uint64)
+    for k in range(20):
+        w, s = divmod(13 * k, 32)
+        v = x[k] << np.uint64(s)
+        words[w] |= v & np.uint64(0xFFFFFFFF)
+        words[w + 1] |= v >> np.uint64(32)
+    top = (words[7] >> np.uint64(31)) | (words[8] << np.uint64(1))
+    low = torch.from_numpy(words[:8].astype(np.uint32).view(np.int32))
+    h = bits_to_limbs(low, OFFS, W)
+    h[0] += 19 * torch.from_numpy(top.astype(np.int64))
+    return freeze(h).to(device=device, dtype=torch.int32)

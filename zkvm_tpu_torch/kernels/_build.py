@@ -4,7 +4,8 @@ Each source (csrc/<source>.cu, which includes csrc/field25519.cuh and, for
 the lane-parallel kernels, csrc/lanes.cuh) compiles with its own nvcc
 process into a shared library with a plain C interface; build_all starts
 them all together.  A kernel's source is csrc/<name>.cu unless SOURCES
-names another: K11 and K12 are entries of K2's library.  Sources include no PyTorch header, so a build
+names another: K11 and K12 are entries of K2's library, K13-K16 of
+csrc/field_micro.cu.  Sources include no PyTorch header, so a build
 takes seconds, not the minutes a torch.utils.cpp_extension build of the
 same code takes.  Libraries land
 in kernels/build/ (ignored by git), named by a hash of their sources and
@@ -59,11 +60,19 @@ SIGNATURES = {
                                  [_P, _P, _P, _P, _P, _L, _L, _I, _I, _I,
                                   _P]),
     "small_scan": ("zkvm_small_scan", [_P, _P, _P, _L, _I, _I, _I, _P]),
+    "micro_mul": ("zkvm_micro_mul", [_P, _P, _P, _L, _I, _I, _P]),
+    "micro_parts": ("zkvm_micro_parts", [_P, _P, _P, _L, _I, _I, _P]),
+    "micro_add_chain": ("zkvm_micro_add_chain", [_P, _P, _P, _L, _I, _P]),
+    "micro_add_chain_lanes": ("zkvm_micro_add_chain_lanes",
+                              [_P, _P, _P, _L, _I, _P]),
 }
 
 # kernels whose entry point lives in another kernel's source
 SOURCES = {"bucket_accumulate_words": "bucket_accumulate",
-           "bucket_accumulate_affine": "bucket_accumulate"}
+           "bucket_accumulate_affine": "bucket_accumulate",
+           "micro_mul": "field_micro", "micro_parts": "field_micro",
+           "micro_add_chain": "field_micro",
+           "micro_add_chain_lanes": "field_micro"}
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}
 

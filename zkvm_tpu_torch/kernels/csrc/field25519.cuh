@@ -79,14 +79,17 @@ __device__ __forceinline__ Fe fe_from64(int64_t h[10]) {
     return r;
 }
 
-__device__ __forceinline__ Fe fe_mul(const Fe& f, const Fe& g) {
+// fe_mul's ten int64 column sums of f g (100 products, 19 times where a
+// pair wraps past limb 9, 2 times where both limbs are odd), before its
+// carry passes (kernels/field.py mul_columns)
+__device__ __forceinline__ void fe_mul_cols(const Fe& f, const Fe& g,
+                                            int64_t h[10]) {
     int32_t g19[10], f2[10];
 #pragma unroll
     for (int i = 0; i < 10; i++) {
         g19[i] = 19 * g.v[i];
         f2[i] = (i & 1) ? 2 * f.v[i] : f.v[i];
     }
-    int64_t h[10];
 #pragma unroll
     for (int k = 0; k < 10; k++) h[k] = 0;
 #pragma unroll
@@ -100,6 +103,11 @@ __device__ __forceinline__ Fe fe_mul(const Fe& f, const Fe& g) {
                 h[i + j - 10] += (int64_t)a * g19[j];
         }
     }
+}
+
+__device__ __forceinline__ Fe fe_mul(const Fe& f, const Fe& g) {
+    int64_t h[10];
+    fe_mul_cols(f, g, h);
     carry_pass(h);
     carry_pass(h);
     return fe_from64(h);

@@ -59,10 +59,12 @@ def carry(h: torch.Tensor) -> torch.Tensor:
     return carry_pass(carry_pass(h))
 
 
-def mul(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Column k = Σ_i f_i g_(k-i) (× 19 where k - i wraps, × 2 where i and
-    k - i are both odd), from views of [19 g, g] and of the same with g's
-    odd limbs doubled: rows 10 - i .. 19 - i are g_(k-i) for k = 0..9."""
+def mul_columns(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """mul's ten int64 columns before its carry passes (the CUDA header's
+    fe_mul_cols): column k = Σ_i f_i g_(k-i) (× 19 where k - i wraps, × 2
+    where i and k - i are both odd), from views of [19 g, g] and of the
+    same with g's odd limbs doubled: rows 10 - i .. 19 - i are g_(k-i) for
+    k = 0..9."""
     f, g = torch.broadcast_tensors(f, g)
     odd = _col(_ODD, g)
     ext = torch.cat([19 * g, g])
@@ -70,7 +72,11 @@ def mul(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     h = f[0] * ext[NL:]
     for i in range(1, NL):
         h = h + f[i] * (ext_odd if i % 2 else ext)[NL - i:2 * NL - i]
-    return carry(h)
+    return h
+
+
+def mul(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    return carry(mul_columns(f, g))
 
 
 def sqr(f: torch.Tensor) -> torch.Tensor:

@@ -118,6 +118,26 @@
    replay of the block, whose split check must accept under the sort +
    gather and affine configurations; prints host_s, device_s, tx/s and
    the MSM's size, width and route;
+10b. with every launch count set to 0 and every host group operation of
+   the port raising (the oracle's Edwards formulas, RistrettoPoint's
+   arithmetic, the host Horner of TorchEngine.msm), proves the committed
+   prover fixture's cases on the card (zkvm_tpu_torch/data/
+   prove_seeded_n64.bin, made by the JAX package's prover): a 64-bit range
+   proof (m = 1) and a 32-party aggregate (RangeProof.prove_multiple on
+   TorchEngine: commitments through msm_batch and K4, the inner-product
+   argument resident on the card, kernels/ipp_device.py) and a standalone
+   n = 1,024 argument (InnerProductProof.create), each byte-equal to the
+   fixture; K2, K3, K4 and K5s must have launched.  verify_multiple and
+   InnerProductProof.verify accept each and reject a flipped t_x bit (a +
+   1); K4's folded identity encodes as 32 zero bytes.  Times each call
+   (events and wall, min and median of 3; m = 32 also with its stage
+   timings on), splits the m = 32 and m = 1 proves (commitments for V, S
+   and A, T; the argument's rounds: issue, wait, fetch and host by wall,
+   scalar step and MSMs + K4 by events) and the argument, each key the
+   median of 3 calls, and times a round's MSM over all 2n + 1 points
+   (half the digits zero) against the n + 1 live ones at n = 64, 1,024
+   and 2,048 (equal as points), and the small route at 2,048 points with
+   2,046 zero digits against random ones;
 11. prints each phase's seconds, the kernels line (every launch count must
    be > 0) and, last, the device line.
 
@@ -563,6 +583,237 @@ def launch_check():
              if v != sort_n.get(k, 0)}
     print(json.dumps([after, sum(sort_n.values())]))
     return 0
+
+
+def prove_phase(smi, dev, bp32, pc, reset, counts):
+    """Phase 10b: range-proof proving on the card (kernels/engine.py's
+    prover calls, kernels/ipp_device.py) from the committed prover fixture
+    (zkvm_tpu_torch/data/prove_seeded_n64.bin, made by the JAX package's
+    prover); -> the prove path's launch counts."""
+    import contextlib
+
+    from zkvm_tpu_torch import fixture
+    from zkvm_tpu_torch.kernels import engine as engine_mod
+    from zkvm_tpu_torch.kernels import frontend, msm
+    from zkvm_tpu_torch.kernels import scalarmod as sm
+    from zkvm_tpu_torch.kernels.combine import horner_fold
+    from zkvm_tpu_torch.kernels.engine import TorchEngine, _point_words
+    from zkvm_tpu_torch.kernels.words import to_device, words_to_points
+    from zkvm_tpu_torch.constants import L
+    from zkvm_tpu_torch.oracle import edwards
+    from zkvm_tpu_torch.oracle.ristretto import RistrettoPoint
+    from zkvm_tpu_torch.proofs.errors import VerificationError
+    from zkvm_tpu_torch.proofs.generators import BulletproofGens
+    from zkvm_tpu_torch.proofs.ipp import InnerProductProof
+    from zkvm_tpu_torch.proofs.rangeproof import RangeProof
+    from zkvm_tpu_torch.proofs.transcript import ProofTranscript
+
+    m1, m32, ipp = fixture.load_prove()
+    t = time.perf_counter()
+    ipp_bp = BulletproofGens(ipp.n, 1)
+    G, H, Q = ipp_bp.G(ipp.n, 1), ipp_bp.H(ipp.n, 1), pc.B_blinding
+    a, b, gf, hf = fixture.ipp_inputs(ipp.seed, ipp.n)
+    print(f"generators for the n = {ipp.n} argument: "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+    eng = TorchEngine(dev)
+
+    def prove(case, timings=None):
+        return RangeProof.prove_multiple(
+            bp32, pc, ProofTranscript(case.label), case.values,
+            case.blindings, case.n, rng=fixture.witness_rng(case.seed),
+            engine=eng, timings=timings)
+
+    def argument(timings=None):
+        return InnerProductProof.create(ProofTranscript(ipp.label), Q, gf, hf,
+                                        G, H, a, b, engine=eng,
+                                        timings=timings)
+
+    @contextlib.contextmanager
+    def host_group_ops_raise():
+        """Every host group operation of the port raises: the oracle's
+        Edwards formulas, RistrettoPoint's arithmetic and the host Horner
+        of TorchEngine.msm."""
+        def stub(*args, **kwargs):
+            raise RuntimeError("chip smoke failed: a host group operation "
+                               "ran on the prove path")
+        swaps = [(edwards, k) for k in ("add", "sub", "double", "scalar_mul")]
+        swaps += [(RistrettoPoint, k) for k in ("__add__", "__sub__",
+                                                "__mul__", "__rmul__",
+                                                "double")]
+        swaps += [(frontend, "combine_window_totals"),
+                  (engine_mod, "combine_window_totals")]
+        saved = [(o, k, getattr(o, k)) for o, k in swaps]
+        for o, k in swaps:
+            setattr(o, k, stub)
+        try:
+            yield
+        finally:
+            for o, k, v in saved:
+                setattr(o, k, v)
+
+    # the counted run: the fixture's three cases, host group ops raising
+    reset()
+    with host_group_ops_raise():
+        got = {"m = 1": prove(m1), "m = 32": prove(m32)}
+        arg = argument()
+    prove_path = counts()
+    for (name, (proof, vcs)), case in zip(got.items(), (m1, m32)):
+        require(proof.to_bytes() == case.wire and vcs == case.commitments,
+                f"the {name} proof differs from the JAX prover's")
+    require(arg.to_bytes() == ipp.wire,
+            "the n = 1024 argument differs from the JAX prover's")
+    require(all(prove_path[i] > 0 for i in (1, 2, 3, 12)),
+            f"the prove path skipped a kernel: {prove_path}")
+    print(f"prove path (m = 1, m = 32, n = {ipp.n} argument, every host "
+          f"group operation raising): bytes equal to the fixture's; "
+          f"launches {prove_path}", flush=True)
+
+    # the port's verifier accepts each proof and rejects a flipped byte
+    for (name, (proof, vcs)), case in zip(got.items(), (m1, m32)):
+        wire = bytearray(proof.to_bytes())
+        RangeProof.from_bytes(bytes(wire)).verify_multiple(
+            bp32, pc, ProofTranscript(case.label), vcs, case.n, engine=eng)
+        wire[4 * 32] ^= 1                                # t_x's low bit
+        try:
+            RangeProof.from_bytes(bytes(wire)).verify_multiple(
+                bp32, pc, ProofTranscript(case.label), vcs, case.n,
+                engine=eng)
+            rejected = False
+        except VerificationError:
+            rejected = True
+        require(rejected, f"the {name} proof with a flipped byte was accepted")
+        print(f"prove {name}: verify_multiple accepts, a flipped t_x bit "
+              "rejects", flush=True)
+    P = eng.msm_batch([[x * g % L for x, g in zip(a, gf)]
+                       + [x * h % L for x, h in zip(b, hf)]
+                       + [sum(x * y for x, y in zip(a, b)) % L]],
+                      [G + H + [Q]])[0]
+    arg.verify(ipp.n, ProofTranscript(ipp.label), gf, hf, P, Q, G, H,
+               engine=eng)
+    bad = InnerProductProof.from_bytes(arg.to_bytes())
+    bad.a = (bad.a + 1) % L
+    try:
+        bad.verify(ipp.n, ProofTranscript(ipp.label), gf, hf, P, Q, G, H,
+                   engine=eng)
+        rejected = False
+    except VerificationError:
+        rejected = True
+    require(rejected, "the argument with a + 1 was accepted")
+    print(f"n = {ipp.n} argument: verify accepts, a + 1 rejects", flush=True)
+    zero = eng.msm_batch([[0, 0]], [[pc.B, Q]])[0]
+    require(zero.compress() == bytes(32),
+            "K4's folded identity does not encode as 32 zero bytes")
+
+    # times: CUDA events and wall clock around each whole call
+    def timed(fn, reps=3):
+        walls, evs = [], []
+        for _ in range(reps):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            evs.append(start.elapsed_time(end))
+        return (f"wall {min(walls):.4f} / {sorted(walls)[reps // 2]:.4f} s, "
+                f"events {min(evs):.2f} / {sorted(evs)[reps // 2]:.2f} ms "
+                f"(min / median of {reps})")
+
+    for name, fn in (("prove m = 1", lambda: prove(m1)),
+                     ("prove m = 32", lambda: prove(m32)),
+                     ("prove m = 32, timed by stage", lambda: prove(m32, {})),
+                     (f"argument n = {ipp.n}", argument)):
+        print(f"{name}: {timed(fn)} [{smi}]", flush=True)
+
+    # the split: each key's median over three timed calls; a round's wall
+    # is issue + wait + fetch + host, its device time scalar step + MSMs and
+    # K4 by events
+    def split(fn, reps=3):
+        runs = []
+        for _ in range(reps):
+            tm = {}
+            torch.cuda.synchronize()
+            fn(tm)
+            runs.append(tm)
+        med = {k: sorted(r[k] for r in runs)[reps // 2] for k in runs[0]}
+        k = med["rounds"]
+        rnd = (f"{k} rounds, a round: wall {1e3 * med['ipp_round_s'] / k:.3f}"
+               f" ms = issue {1e3 * med['ipp_issue_s'] / k:.3f} + wait "
+               f"{1e3 * med['ipp_wait_s'] / k:.3f} + fetch "
+               f"{1e3 * med['ipp_fetch_s'] / k:.3f} + host "
+               f"{1e3 * med['ipp_host_s'] / k:.3f}; events: scalar step "
+               f"{med['ipp_scalar_ms'] / k:.3f} ms, MSMs + K4 "
+               f"{med['ipp_msm_ms'] / k:.3f} ms")
+        return med, runs, rnd
+
+    for name, case in (("m = 32", m32), ("m = 1", m1)):
+        med, runs, rnd = split(lambda tm: prove(case, tm))
+        each = ", ".join(f"{r['prove_s']:.4f}" for r in runs)
+        print(f"prove {name} split (median of {len(runs)}; prove_s {each}): "
+              f"prove_s={med['prove_s']:.4f} s = commitments "
+              f"{med['commit_s']:.4f} (V {med['commit_v_s']:.4f}, S and A "
+              f"{med['commit_sa_s']:.4f}, T {med['commit_t_s']:.4f}) + "
+              f"argument {med['ipp_s']:.4f} in {rnd} + the rest (host "
+              f"polynomials, transcript, RNG) "
+              f"{med['prove_s'] - med['commit_s'] - med['ipp_s']:.4f} s "
+              f"[{smi}]", flush=True)
+    med, runs, rnd = split(argument)
+    print(f"argument n = {ipp.n} split (median of {len(runs)}): "
+          f"{med['ipp_s']:.4f} s in {rnd} [{smi}]", flush=True)
+
+    # zero digits: a round's MSM over all 2n + 1 points, half its scalars
+    # zero by the mask, against the same MSM over the n + 1 live points;
+    # and a 2,048-point small-route MSM of almost all zero digits
+    gens = bp32.G(64, 32) + bp32.H(64, 32) + [Q]
+    rs = np.random.default_rng(2031)
+    for n in (64, 1024, 2048):
+        pts = [*gens[:n], *gens[2048:2048 + n], Q]
+        live = [j for j in range(n) if j >= n // 2] + \
+            [n + j for j in range(n) if j < n // 2] + [2 * n]
+        ks = [0] * (2 * n + 1)
+        for j in live:
+            ks[j] = int.from_bytes(rs.bytes(32), "little") % L
+        words = np.stack([_point_words(p) for p in pts]).transpose(1, 2, 0)
+        allp = words_to_points(to_device(np.ascontiguousarray(words), dev))
+        idx = torch.tensor(live, device=dev)
+        livep = allp[:, :, idx].contiguous()
+        lim = sm.ints_to_limbs(ks, dev)
+        w_all, w_live = msm.best_wbits(2 * n + 1), msm.best_wbits(n + 1)
+        d_all = sm.signed_digits(lim, w_all)
+        d_live = sm.signed_digits(lim[:, idx], w_live)
+        f_all = horner_fold(msm.window_totals(allp, d_all, w_all)
+                            .unsqueeze(2).contiguous(), w_all)
+        f_live = horner_fold(msm.window_totals(livep, d_live, w_live)
+                             .unsqueeze(2).contiguous(), w_live)
+        require(same_ristretto(f_all, f_live),
+                f"the masked and the gathered MSM differ at n = {n}")
+        print(f"zero digits, argument n = {n}: masked {2 * n + 1} points "
+              f"({msm.route(2 * n + 1)}, w = {w_all}) "
+              f"{cuda_ms(lambda: msm.window_totals(allp, d_all, w_all), 10):.4f}"
+              f" ms, gathered {n + 1} live points ({msm.route(n + 1)}, w = "
+              f"{w_live}) {cuda_ms(lambda: msm.window_totals(livep, d_live, w_live), 10):.4f}"
+              f" ms, gather {cuda_ms(lambda: allp[:, :, idx].contiguous(), 10):.4f}"
+              f" ms; equal as points [{smi}]", flush=True)
+    pts2k = words_to_points(to_device(np.ascontiguousarray(np.stack(
+        [_point_words(p) for p in gens[:2048]]).transpose(1, 2, 0)), dev))
+    ks = [0] * 2048
+    ks[5], ks[1999] = 7, L - 3
+    sparse = sm.signed_digits(sm.ints_to_limbs(ks, dev), 8)
+    dense = sm.signed_digits(sm.ints_to_limbs(
+        [int.from_bytes(rs.bytes(32), "little") % L for _ in range(2048)],
+        dev), 8)
+    require(same_points(msm.window_totals_small(pts2k, sparse, 8),
+                        msm.window_totals_large(pts2k, sparse, 8)),
+            "the small route on 2,046 zero digits differs from the large")
+    print(f"small route at 2,048 points, w = 8: 2,046 zero digits "
+          f"{cuda_ms(lambda: msm.window_totals_small(pts2k, sparse, 8), 10):.4f}"
+          f" ms, random digits "
+          f"{cuda_ms(lambda: msm.window_totals_small(pts2k, dense, 8), 10):.4f}"
+          f" ms [{smi}]", flush=True)
+    return prove_path
 
 
 def main():
@@ -1966,11 +2217,14 @@ def main():
     print(f"aggregated_key MSM (2 points, w = {ak_w}) by stage, mean of 20: "
           f"window totals on the card {1e3 * ak_card:.3f} ms, fetch + host "
           f"Horner {1e3 * ak_host:.3f} ms [{smi}]", flush=True)
-    launches = [sum(c) for c in zip(range_path, r1cs_path, entry, micro_path,
-                                    engine_path, tx_path)]
-    require(all(c > 0 for c in launches), f"a kernel never launched: {launches}")
-
     mark("10 (tx path)")
+
+    # --------------------------------------------------------- phase 10b
+    prove_path = prove_phase(smi, dev, bp32, pc, reset, counts)
+    launches = [sum(c) for c in zip(range_path, r1cs_path, entry, micro_path,
+                                    engine_path, tx_path, prove_path)]
+    require(all(c > 0 for c in launches), f"a kernel never launched: {launches}")
+    mark("10b (prove path)")
 
     # ---------------------------------------------------------- phase 11
     table = [  # key, name, source, replaced TPU kernel(s)

@@ -22,6 +22,7 @@ from zkvm_tpu_torch.kernels.engine import TorchEngine
 from zkvm_tpu_torch.parallel.tx_batch import fused_verify_tx_batch
 from zkvm_tpu_torch.proofs.engine import get_engine
 from zkvm_tpu_torch.proofs.generators import BulletproofGens, PedersenGens
+from zkvm_tpu_torch.proofs.ipp import InnerProductProof
 from zkvm_tpu_torch.proofs.r1cs import R1CSProof
 from zkvm_tpu_torch.proofs.rangeproof import RangeProof, batch_verify
 from zkvm_tpu_torch.proofs.transcript import ProofTranscript
@@ -103,6 +104,14 @@ def test_engine_entry_points_without_device_need_cuda():
                       RangeProof.from_bytes(wire)], bp, pc,
                      [ProofTranscript(label1), ProofTranscript(label)],
                      [recs1[0][1], vcs], n)
+    # the prover: its commitments and the inner-product argument
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RangeProof.prove_single(bp, pc, ProofTranscript(label), 5, 7, n)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pc.commit_batch([5], [7])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InnerProductProof.create(ProofTranscript(label), pc.B, [1, 1], [1, 1],
+                                 bp.G(2, 1), bp.H(2, 1), [1, 2], [3, 4])
 
 
 def test_kernel_wrappers_refuse_non_cuda_devices(monkeypatch, tmp_path):

@@ -22,10 +22,22 @@ them): magic b"ZKTX0001", u32 generator capacity, u32 count, then per
 transaction a u8 kind tag (an index into TX_KINDS), u32 wire length, the
 wire bytes (Tx.to_bytes()) and the 32-byte txid the JAX package's
 verifier computed.
+
+Prover fixture (little-endian; tests/test_torch_prove_fixture.py makes
+it with the JAX package's prover on the CPU): magic b"ZKPROVE1", u32 case
+count, then per case u8 kind (0 a range proof, 1 an inner-product
+argument), u32 n, u32 m, u32 seed length, the seed, u32 label length, the
+transcript label, then for a range proof m times (u64 value, 32-byte
+blinding, 32-byte value commitment) and u32 wire length, the wire bytes;
+for an argument u32 length and its InnerProductProof.to_bytes() (L_vec and
+R_vec interleaved, then a and b).  A range proof's witness RNG is
+witness_rng(seed); an argument's inputs are ipp_inputs(seed, n) over
+BulletproofGens(n, 1)'s party 0 with Q = PedersenGens().B_blinding.
 """
 
 from __future__ import annotations
 
+import random
 import struct
 from dataclasses import dataclass
 from pathlib import Path
@@ -42,6 +54,9 @@ TXS_BLOCK = DATA / "txs_block256.bin"
 TX_MAGIC = b"ZKTX0001"
 TX_KINDS = ("issue", "payment", "call", "signid", "signtag", "unblind",
             "borrow_retire", "fee")
+PROVE = DATA / "prove_seeded_n64.bin"
+PROVE_MAGIC = b"ZKPROVE1"
+PROVE_KINDS = ("range", "ipp")
 
 
 def wire_len(n: int, m: int) -> int:
@@ -248,3 +263,86 @@ def tampered_tx(wire: bytes, part: str) -> bytes:
     else:
         raise ValueError(f"unknown part {part!r}")
     return tx.to_bytes()
+
+
+# ----------------------------------------------------------------- prover
+@dataclass
+class ProveCase:
+    kind: str                       # "range" or "ipp"
+    n: int
+    m: int
+    seed: bytes
+    label: bytes
+    values: list[int]               # range proofs: the m values,
+    blindings: list[int]            # their blindings
+    commitments: list[bytes]        # and value commitments
+    wire: bytes                     # RangeProof or InnerProductProof bytes
+
+
+def witness_rng(seed: bytes):
+    """The fixture's seeded witness RNG (a TranscriptRng)."""
+    from .oracle.merlin import Transcript
+    return (Transcript(b"test-witness-rng").build_rng()
+            .rekey_with_witness_bytes(b"seed", seed).finalize(b"\x00" * 32))
+
+
+def ipp_inputs(seed: bytes, n: int):
+    """-> (a, b, G_factors, H_factors) of a standalone argument of length
+    n: random a, b mod ℓ and H_factors = powers of a random y."""
+    from .constants import L
+    r = random.Random(int.from_bytes(seed, "little"))
+    a = [r.randrange(L) for _ in range(n)]
+    b = [r.randrange(L) for _ in range(n)]
+    y = r.randrange(1, L)
+    return a, b, [1] * n, [pow(y, i, L) for i in range(n)]
+
+
+def dump_prove(path, cases: list[ProveCase]) -> None:
+    blob = bytearray(PROVE_MAGIC + struct.pack("<I", len(cases)))
+    for c in cases:
+        blob += struct.pack("<BIII", PROVE_KINDS.index(c.kind), c.n, c.m,
+                            len(c.seed)) + c.seed
+        blob += struct.pack("<I", len(c.label)) + c.label
+        if c.kind == "range":
+            if not len(c.values) == len(c.blindings) == len(c.commitments) \
+                    == c.m:
+                raise ValueError("a range case holds m values")
+            for v, b, vc in zip(c.values, c.blindings, c.commitments):
+                blob += struct.pack("<Q", v) + b.to_bytes(32, "little") + vc
+        blob += struct.pack("<I", len(c.wire)) + c.wire
+    Path(path).write_bytes(bytes(blob))
+
+
+def load_prove(path=PROVE) -> list[ProveCase]:
+    data = Path(path).read_bytes()
+    if data[:8] != PROVE_MAGIC:
+        raise ValueError("not a prover fixture")
+    off = 8
+
+    def take(size: int) -> bytes:
+        nonlocal off
+        if off + size > len(data):
+            raise ValueError("truncated prover fixture")
+        off += size
+        return data[off - size: off]
+
+    def u32() -> int:
+        return struct.unpack("<I", take(4))[0]
+
+    cases = []
+    for _ in range(u32()):
+        kind, n, m, slen = struct.unpack("<BIII", take(13))
+        if kind >= len(PROVE_KINDS):
+            raise ValueError("bad case in a prover fixture")
+        seed, label = take(slen), take(u32())
+        values, blindings, commitments = [], [], []
+        if PROVE_KINDS[kind] == "range":
+            for _ in range(m):
+                values.append(struct.unpack("<Q", take(8))[0])
+                blindings.append(int.from_bytes(take(32), "little"))
+                commitments.append(take(32))
+        cases.append(ProveCase(PROVE_KINDS[kind], n, m, seed, label, values,
+                               blindings, commitments, take(u32())))
+    if off != len(data):
+        raise ValueError("trailing bytes in a prover fixture")
+    return cases

@@ -1,17 +1,25 @@
 """TorchEngine: the port's device implementation of the Engine seam
 (proofs/engine.py).
 
-Counterpart of the JAX package's kernels/engine.py::JaxEngine for the
-verifier's two calls, msm and msm_is_identity.  Protocol code stays host
-Python over RistrettoPoints; the engine packs their canonical words
-(cached on each point, so static generators convert once) and the
-scalars, and runs frontend.window_totals_from_words on its device.  msm
-combines the window totals on the host; msm_is_identity runs K4 on the
-card and fetches one int.
+Counterpart of the JAX package's kernels/engine.py::JaxEngine.  Protocol
+code stays host Python over RistrettoPoints; the engine packs their
+canonical words (cached on each point, so static generators convert once)
+and the scalars, and runs frontend.window_totals_from_words on its device.
+The verifier's calls: msm combines the window totals on the host;
+msm_is_identity runs K4 on the card and fetches one int.  The prover's
+calls: msm_batch uploads every group's words at once, runs each group's
+window totals with no host sync between groups, folds all groups with K4
+horner_fold in one launch and fetches the points once; commit,
+commit_batch and bit_commit_batch (the base class's definitions) ride it,
+msm_secret is msm (the base class's definition), and ipp_create runs the
+device-resident inner-product argument (kernels/ipp_device.py).
 
 Every MSM goes to the device: the JAX engine keeps MSMs under 2,048 points
 on the host because a TPU round trip costs ~24 ms there, which does not
 hold on the card, and msm.window_totals has its own route for n <= 2,048.
+The prover's MSMs too, where the JAX engine keeps secret MSMs under 4,096
+points on its constant-time host path: the card's MSM sorts by digit, so
+its memory traffic depends on the secret scalars (README, "Proving").
 """
 
 from __future__ import annotations
@@ -24,11 +32,12 @@ from ..constants import L
 from ..oracle import edwards
 from ..oracle.ristretto import RistrettoPoint
 from ..proofs.engine import Engine
+from . import scalarmod as sm
 from .batch_verify_device import require_device
-from .combine import horner_check
+from .combine import horner_check, horner_fold
 from .frontend import combine_window_totals, pack_words, window_totals_from_words
-from .msm import MsmConfig, best_wbits
-from .words import point_words, to_device
+from .msm import MsmConfig, best_wbits, window_totals
+from .words import point_words, points_to_ints, to_device, words_to_points
 
 
 def _point_words(p: RistrettoPoint):
@@ -92,3 +101,47 @@ class TorchEngine(Engine):
         totals, wbits = self.totals_from_words(*words)
         return bool(horner_check(totals.unsqueeze(2).contiguous(), wbits)
                     .item())
+
+    # ------------------------------------------------------ the prover's
+    def msm_batch(self, scalars_groups, points_groups,
+                  ct: bool = False) -> list[RistrettoPoint]:
+        """Independent MSMs on the device, one fetch for all of them: one
+        upload, decode and recode for every group, then each group's window
+        totals and one K4 launch.  Every group takes one window width (the
+        largest group's); a group whose own best width differs raises.  The
+        route does not depend on ct: secret scalars take the same
+        variable-time pipeline."""
+        groups = [(s.to_ints() if hasattr(s, "to_ints") else s, list(p))
+                  for s, p in zip(scalars_groups, points_groups,
+                                  strict=True)]
+        if any(len(s) != len(p) for s, p in groups):
+            raise ValueError("one scalar per point")
+        out = [RistrettoPoint(edwards.IDENTITY) for _ in groups]
+        live = [i for i, (_, p) in enumerate(groups) if p]
+        if not live:
+            return out
+        sizes = [len(groups[i][1]) for i in live]
+        wbits = self.wbits or best_wbits(max(sizes))
+        if self.wbits is None and any(best_wbits(n) != wbits for n in sizes):
+            raise ValueError("msm_batch: groups of different window widths")
+        pw, sw = self.pack([x for i in live for x in groups[i][0]],
+                           [p for i in live for p in groups[i][1]])
+        points = words_to_points(to_device(pw, self.device))
+        digits = sm.signed_digits(
+            sm.decode_words_first(to_device(sw, self.device)), wbits)
+        totals, off = [], 0
+        for n in sizes:
+            totals.append(window_totals(points[:, :, off:off + n].contiguous(),
+                                        digits[off:off + n], wbits,
+                                        self.config))
+            off += n
+        folded = horner_fold(torch.stack(totals, 2).contiguous(), wbits)
+        for i, ep in zip(live, points_to_ints(folded)):
+            out[i] = RistrettoPoint(ep)
+        return out
+
+    def ipp_create(self, transcript, Q, G_factors, H_factors, G, H, a, b,
+                   timings: dict | None = None):
+        from .ipp_device import create
+        return create(self, transcript, Q, G_factors, H_factors, G, H, a, b,
+                      timings=timings)

@@ -14,7 +14,7 @@ __all__ = [
     "add", "sub", "neg", "mul", "invert", "batch_invert", "invert_plain",
     "batch_invert_plain",
     "from_bytes_mod_order", "from_bytes_mod_order_wide", "from_canonical_bytes",
-    "to_bytes", "sum_of_powers",
+    "to_bytes", "sum_of_powers", "inner_product",
 ]
 
 
@@ -106,3 +106,8 @@ def sum_of_powers(x: int, n: int) -> int:
         cur = cur * x % L
     return acc
 
+
+def inner_product(a: list[int], b: list[int]) -> int:
+    """<a, b> mod ℓ (upstream util::inner_product)."""
+    assert len(a) == len(b)
+    return sum(x * y for x, y in zip(a, b)) % L

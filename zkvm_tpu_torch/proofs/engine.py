@@ -1,15 +1,22 @@
-"""The seam between the proof layer and the device: the verifier's group
-math (its mega-check MSMs) goes through an Engine.
+"""The seam between the proof layer and the device: the group math of the
+verifier (its mega-check MSMs) and of the range prover (its commitments
+and the inner-product argument) goes through an Engine.
 
 Counterpart of the JAX package's proofs/engine.py, with the port's own
 get_engine/set_engine; nothing is plugged into the JAX package's seam.
 The default engine is kernels/engine.py::TorchEngine on "cuda", made at
 the first get_engine(): without a CUDA device that call raises, as the
 port's entry points do.
+
+The base class defines every prover call in terms of msm, as the JAX
+package's host Engine does without its native library, and ipp_create as
+InnerProductProof.create_plain: the plain definitions that the tests run
+over the oracle.  TorchEngine runs all of them on its device.
 """
 
 from __future__ import annotations
 
+from ..constants import L
 from ..oracle.ristretto import RistrettoPoint
 
 
@@ -32,6 +39,49 @@ class Engine:
         timings, when given, may receive pack_s: the seconds of the call
         spent packing the inputs on the host."""
         return self.msm(scalars, points).is_identity()
+
+    def msm_secret(self, scalars, points) -> RistrettoPoint:
+        """An MSM over secret scalars (the prover's commitments)."""
+        return self.msm(scalars, points)
+
+    def msm_batch(self, scalars_groups, points_groups,
+                  ct: bool = False) -> list[RistrettoPoint]:
+        """Independent MSMs, one a group; ct marks secret scalars."""
+        f = self.msm_secret if ct else self.msm
+        return [f(s, p) for s, p in
+                zip(scalars_groups, points_groups, strict=True)]
+
+    def commit(self, value: int, blinding: int, B: RistrettoPoint,
+               B_blinding: RistrettoPoint) -> RistrettoPoint:
+        """The Pedersen commitment value·B + blinding·B_blinding."""
+        return self.commit_batch([value], [blinding], B, B_blinding)[0]
+
+    def commit_batch(self, values, blindings, B: RistrettoPoint,
+                     B_blinding: RistrettoPoint) -> list[RistrettoPoint]:
+        """[v_i·B + b_i·B_blinding], one msm_batch."""
+        groups = [[v, b] for v, b in zip(values, blindings, strict=True)]
+        return self.msm_batch(groups, [[B, B_blinding]] * len(groups),
+                              ct=True)
+
+    def bit_commit_batch(self, jobs) -> list[RistrettoPoint]:
+        """The range proof's A commitments: jobs = [(a_blinding, a_L bits,
+        B_blinding, G, H)] -> [a_blinding·B_blinding + <a_L, G> + <a_R, H>]
+        with a_R = a_L - 1 mod ℓ, one msm_batch over [a_blinding] + a_L +
+        a_R and [B_blinding] + G + H."""
+        scalars, points = [], []
+        for blind, bits, B_blinding, G, H in jobs:
+            scalars.append([blind] + list(bits)
+                           + [(x - 1) % L for x in bits])
+            points.append([B_blinding] + list(G) + list(H))
+        return self.msm_batch(scalars, points, ct=True)
+
+    def ipp_create(self, transcript, Q, G_factors, H_factors, G, H, a, b,
+                   timings: dict | None = None):
+        """The inner-product argument (InnerProductProof.create's body):
+        here the plain rounds, which fold the points on the host oracle."""
+        from .ipp import InnerProductProof
+        return InnerProductProof.create_plain(transcript, Q, G_factors,
+                                              H_factors, G, H, a, b, self)
 
 
 _default_engine: Engine | None = None

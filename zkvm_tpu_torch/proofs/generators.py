@@ -8,7 +8,10 @@ Upstream counterpart: bulletproofs/src/generators.rs —
 - BulletproofGens: per-party G/H chains with labels b"G"/b"H" || u32-LE party id.
 
 Derived on the host once; kernels/batch_verify_device.py keeps their
-canonical words resident on the device.
+canonical words resident on the device.  The prover's commitments
+(PedersenGens.commit_batch) go through the engine; PedersenGens.commit
+stays the host formula for the verifier's one public commitment
+(vm/constraints.py), which must not cost a round trip to the card.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import hashlib
 
 from ..constants import GENERATORS_CHAIN_LABEL
 from ..oracle.ristretto import BASEPOINT, RistrettoPoint
+from .engine import resolve_engine
 
 
 class PedersenGens:
@@ -35,6 +39,13 @@ class PedersenGens:
 
     def commit(self, value: int, blinding: int) -> RistrettoPoint:
         return self.B * value + self.B_blinding * blinding
+
+    def commit_batch(self, values, blindings,
+                     engine=None) -> list[RistrettoPoint]:
+        """[Commit(v_i, b_i)] in one engine call (engine=, else the default
+        engine, on the card)."""
+        return resolve_engine(engine=engine).commit_batch(
+            values, blindings, self.B, self.B_blinding)
 
 
 class GeneratorsChain:

@@ -1,7 +1,14 @@
-"""Bulletproofs range proofs: wire format and batched verification.
+"""Bulletproofs range proofs: proving, wire format and batched
+verification.
 
 Upstream counterpart: bulletproofs/src/range_proof/mod.rs —
-RangeProof::{verify_multiple, to_bytes, from_bytes} and the batch seam.
+RangeProof::{prove_single, prove_multiple, verify_multiple, to_bytes,
+from_bytes} and the batch seam.  The prover runs the dealer/party MPC
+locally (proofs/mpc.py) with every group operation on the engine: one
+commit_batch for the value commitments, one msm_batch for the S
+commitments and one bit_commit_batch for the A commitments (the JAX
+package's grouping), the dealer's sums, one commit_batch for T_1 and T_2,
+then the inner-product argument (kernels/ipp_device.py on the card).
 The verifier's whole check is ONE multiscalar multiplication; a batch of
 proofs combines those checks with random weights into one larger MSM.
 When every proof of a batch aggregates the same number m of values,
@@ -34,6 +41,7 @@ from .generators import BulletproofGens, PedersenGens
 from .ipp import InnerProductProof
 from .scalarvec import PlainScalarVec, ScalarVec
 from .transcript import ProofTranscript
+from .util import add_time
 
 IDENTITY_ERROR = "point validation failed: identity"
 
@@ -62,6 +70,77 @@ class RangeProof:
     t_x_blinding: int
     e_blinding: int
     ipp_proof: InnerProductProof
+
+    @staticmethod
+    def prove_multiple(bp_gens: BulletproofGens, pc_gens: PedersenGens,
+                       transcript: ProofTranscript, values: list[int],
+                       blindings: list[int], n: int, rng=None, device=None,
+                       engine: Engine | None = None,
+                       timings: dict | None = None
+                       ) -> tuple["RangeProof", list[bytes]]:
+        """An aggregated proof that each of the m values lies in [0, 2^n)
+        (upstream prove_multiple_with_rng); -> (proof, value commitments).
+        rng is the witness RNG (a TranscriptRng; None draws from the
+        operating system).  The group operations run on `engine`, else a
+        TorchEngine on `device`, else the default engine (the card).
+        timings, when given, receives commit_v_s, commit_sa_s and
+        commit_t_s (the engine calls for V, for S and A, for T_1 and T_2,
+        with the dealer's transcript steps between them), commit_s (their
+        sum), ipp_create's keys and prove_s, wall seconds."""
+        from .mpc import Dealer, Party, PolyCommitment
+
+        t0 = time.perf_counter()
+        if len(values) != len(blindings):
+            raise ValueError("mismatched values/blindings lengths")
+        m = len(values)
+        eng = resolve_engine(device, engine)
+        dealer = Dealer(bp_gens, pc_gens, transcript, n, m, engine=eng)
+        t = time.perf_counter()
+        Vs = pc_gens.commit_batch(values, blindings, engine=eng)
+        add_time(timings, "commit_v_s", t)
+        parties = [Party(bp_gens, pc_gens, v, b, n, rng=rng, engine=eng, V=V)
+                   for v, b, V in zip(values, blindings, Vs)]
+        groups_s, groups_p, a_jobs = [], [], []
+        for j, p in enumerate(parties):
+            _sa, pa, ss, ps = p.bit_commitment_parts(j)
+            a_jobs.append((p.a_blinding, p.a_L, pc_gens.B_blinding,
+                           pa[1:n + 1], pa[n + 1:]))
+            groups_s.append(ss)
+            groups_p.append(ps)
+        t = time.perf_counter()
+        outs_s = eng.msm_batch(groups_s, groups_p, ct=True)
+        outs_a = eng.bit_commit_batch(a_jobs)
+        bit_commitments = [p.finish_bit_commitment(outs_a[j], outs_s[j])
+                           for j, p in enumerate(parties)]
+        bit_challenge = dealer.receive_bit_commitments(bit_commitments)
+        add_time(timings, "commit_sa_s", t)
+        openings = [p.poly_commitment_parts(bit_challenge) for p in parties]
+        t = time.perf_counter()
+        Ts = pc_gens.commit_batch([x for vs, _ in openings for x in vs],
+                                  [x for _, bs in openings for x in bs],
+                                  engine=eng)
+        poly_challenge = dealer.receive_poly_commitments(
+            [PolyCommitment(Ts[2 * j], Ts[2 * j + 1]) for j in range(m)])
+        add_time(timings, "commit_t_s", t)
+        if timings is not None:
+            timings["commit_s"] = sum(timings[k] for k in (
+                "commit_v_s", "commit_sa_s", "commit_t_s"))
+        shares = [p.apply_poly_challenge(poly_challenge) for p in parties]
+        proof = dealer.receive_trusted_shares(shares, timings)
+        add_time(timings, "prove_s", t0)
+        return proof, [bc.V_j for bc in bit_commitments]
+
+    @staticmethod
+    def prove_single(bp_gens: BulletproofGens, pc_gens: PedersenGens,
+                     transcript: ProofTranscript, v: int, v_blinding: int,
+                     n: int, rng=None, device=None,
+                     engine: Engine | None = None,
+                     timings: dict | None = None
+                     ) -> tuple["RangeProof", bytes]:
+        proof, commitments = RangeProof.prove_multiple(
+            bp_gens, pc_gens, transcript, [v], [v_blinding], n, rng, device,
+            engine, timings)
+        return proof, commitments[0]
 
     def dyn_compressed(self, value_commitments: list[bytes]) -> list[bytes]:
         """This proof's dynamic mega-check points, compressed, in MSM

@@ -15,7 +15,9 @@
 1b. builds the native host library (zkvm_tpu_torch/native, g++
    -march=native on this machine) and prints its build time beside
    os.cpu_count(); holds every native entry and host half byte for byte
-   against its pure-Python twin at small size (native_phase);
+   against its pure-Python twin at small size, the R1CS prover's
+   ScalarVec polynomial chain against its VecPoly3 twin too
+   (native_phase);
 2. holds K1-K4 against their plain PyTorch versions on the card at the
    range-proof path's shapes (nb = 1024 proofs of 64 bits, m = 1, whose
    native host half it times by stage: replay, weights, params), words
@@ -138,6 +140,23 @@
    (half the digits zero) against the n + 1 live ones at n = 64, 1,024
    and 2,048 (equal as points), and the small route at 2,048 points with
    2,046 zero digits against random ones;
+10c. with every launch count set to 0, proves the two seeded circuits of
+   the committed R1CS prover fixture (zkvm_tpu_torch/data/
+   prove_r1cs_seeded.bin, made by the JAX package: a Cloak 4x4 with 64-bit
+   values, two phases, and 512 committed values under 64-bit range
+   gadgets, 2^15 multipliers) with the R1CS Prover on TorchEngine and
+   every host group operation raising, byte-equal to the fixture, and
+   builds its two issues and its payment (MuSig of two parties) with the
+   port's apps and build_tx, the R1CS prover's and MuSig's host group
+   operations raising: txid, fee, log and program equal to the JAX
+   build_tx's; K2, K3, K4 and K5s must have launched.  R1CS
+   Verifier.verify accepts each proof and rejects a flipped t_x bit;
+   verify_tx accepts each transaction and rejects a flipped proof byte and
+   a flipped signature byte; starsig.verify accepts each MuSig signature.
+   Times each prove (the circuit laid, then proved) and each build_tx,
+   min and median of 3 calls, wall beside CUDA events, and splits them
+   (medians): V commitments, phase commitments, T, Q, the argument and
+   the host; the VM run, signing and the prove;
 11. prints each phase's seconds, the kernels line (every launch count must
    be > 0) and, last, the device line.
 
@@ -147,6 +166,7 @@ is full size with real points and distinct digits.  Exits non-zero on any
 failure, and without a CUDA device.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -353,7 +373,8 @@ def native_phase(smi):
     size (STROBE and Keccak-f, ScalarVec, inversion, the Ristretto decode
     with invalid and zero encodings and the encode, the range-proof replay
     with a zero point, the scalar and params assemblies with a zero
-    challenge and y = 1, the R1CS flatten); the host halves against theirs
+    challenge and y = 1, the R1CS flatten, the R1CS prover's polynomial
+    chain against VecPoly3's); the host halves against theirs
     (prepare_batch_inputs at nb = 8, batch_verification_job on four proofs
     of m = 1, 1, 2, 4, verification_job_split_vec on the Cloak)."""
     import hashlib
@@ -369,9 +390,11 @@ def native_phase(smi):
     from zkvm_tpu_torch.proofs.generators import BulletproofGens, PedersenGens
     from zkvm_tpu_torch.proofs.r1cs import R1CSProof
     from zkvm_tpu_torch.proofs.r1cs import constraint_system as cs
+    from zkvm_tpu_torch.proofs.r1cs import prover as r1cs_prover
     from zkvm_tpu_torch.proofs.r1cs.lc import LinearCombination, Variable
     from zkvm_tpu_torch.proofs.scalarvec import PlainScalarVec, ScalarVec
     from zkvm_tpu_torch.proofs.transcript import ProofTranscript
+    from zkvm_tpu_torch.proofs.util import powers
 
     t0 = time.perf_counter()
     native.lib()
@@ -512,6 +535,17 @@ def native_phase(smi):
     require([fl[0].to_ints(), fl[1].to_ints(), fl[2].to_ints(), fl[3], fl[4]]
             == [tw[0] + [0], tw[1] + [0], tw[2] + [0], tw[3], tw[4]],
             "native flatten differs")
+    # the R1CS prover's polynomial chain against its VecPoly3 twin
+    vecs = [ints(17) for _ in range(8)]
+    y, x = ints(7)[5:]
+    ey, eyi = powers(y, 17), powers(scalar.invert(y), 17)
+    lc, rc, tc = r1cs_prover.polynomials(*(ScalarVec.from_ints(v)
+                                           for v in vecs + [ey, eyi]))
+    lp, rpl, tp = r1cs_prover.polynomials_plain(*vecs, ey, eyi)
+    lv, rv = r1cs_prover.evaluate(lc, rc, x)
+    require(tc.t == tp.t and lv.to_ints() == lp.eval(x)
+            and rv.to_ints() == rpl.eval(x),
+            "the R1CS prover's ScalarVec chain differs from VecPoly3's")
     # the host halves
     batch = [rp.RangeProof.from_bytes(recs[i % len(recs)][0])
              for i in range(8)]
@@ -547,7 +581,8 @@ def native_phase(smi):
           "pure-Python twin (STROBE, Keccak-f, ScalarVec at n = 0, 1, 17, "
           "inversion, decode with invalid and zero encodings, encode, replay "
           "with a zero L, scalar and params assemblies with a zero challenge "
-          "and y = 1, flatten; prepare_batch_inputs at nb = 8, "
+          "and y = 1, flatten, the R1CS prover's polynomial chain at n = "
+          "17; prepare_batch_inputs at nb = 8, "
           "batch_verification_job at m = 1, 1, 2, 4, the Cloak's "
           f"verification_job_split_vec) [{smi}]", flush=True)
 
@@ -585,23 +620,65 @@ def launch_check():
     return 0
 
 
+@contextlib.contextmanager
+def host_group_ops_raise():
+    """Every host group operation of the port raises: the oracle's Edwards
+    formulas, RistrettoPoint's arithmetic and the host Horner of
+    TorchEngine.msm."""
+    from zkvm_tpu_torch.kernels import engine as engine_mod
+    from zkvm_tpu_torch.kernels import frontend
+    from zkvm_tpu_torch.oracle import edwards
+    from zkvm_tpu_torch.oracle.ristretto import RistrettoPoint
+
+    def stub(*args, **kwargs):
+        raise RuntimeError("chip smoke failed: a host group operation "
+                           "ran on the prove path")
+    swaps = [(edwards, k) for k in ("add", "sub", "double", "scalar_mul")]
+    swaps += [(RistrettoPoint, k) for k in ("__add__", "__sub__", "__mul__",
+                                            "__rmul__", "double")]
+    swaps += [(frontend, "combine_window_totals"),
+              (engine_mod, "combine_window_totals")]
+    saved = [(o, k, getattr(o, k)) for o, k in swaps]
+    for o, k in swaps:
+        setattr(o, k, stub)
+    try:
+        yield
+    finally:
+        for o, k, v in saved:
+            setattr(o, k, v)
+
+
+@contextlib.contextmanager
+def host_group_ops_raise_in(*targets):
+    """host_group_ops_raise while one of the functions named by targets,
+    (owner, attribute) pairs, runs."""
+    def raising(f):
+        def inner(*args, **kwargs):
+            with host_group_ops_raise():
+                return f(*args, **kwargs)
+        return inner
+    saved = [(o, k, getattr(o, k)) for o, k in targets]
+    for o, k, f in saved:
+        setattr(o, k, raising(f))
+    try:
+        yield
+    finally:
+        for o, k, f in saved:
+            setattr(o, k, f)
+
+
 def prove_phase(smi, dev, bp32, pc, reset, counts):
     """Phase 10b: range-proof proving on the card (kernels/engine.py's
     prover calls, kernels/ipp_device.py) from the committed prover fixture
     (zkvm_tpu_torch/data/prove_seeded_n64.bin, made by the JAX package's
     prover); -> the prove path's launch counts."""
-    import contextlib
-
     from zkvm_tpu_torch import fixture
-    from zkvm_tpu_torch.kernels import engine as engine_mod
-    from zkvm_tpu_torch.kernels import frontend, msm
+    from zkvm_tpu_torch.kernels import msm
     from zkvm_tpu_torch.kernels import scalarmod as sm
     from zkvm_tpu_torch.kernels.combine import horner_fold
     from zkvm_tpu_torch.kernels.engine import TorchEngine, _point_words
     from zkvm_tpu_torch.kernels.words import to_device, words_to_points
     from zkvm_tpu_torch.constants import L
-    from zkvm_tpu_torch.oracle import edwards
-    from zkvm_tpu_torch.oracle.ristretto import RistrettoPoint
     from zkvm_tpu_torch.proofs.errors import VerificationError
     from zkvm_tpu_torch.proofs.generators import BulletproofGens
     from zkvm_tpu_torch.proofs.ipp import InnerProductProof
@@ -627,29 +704,6 @@ def prove_phase(smi, dev, bp32, pc, reset, counts):
         return InnerProductProof.create(ProofTranscript(ipp.label), Q, gf, hf,
                                         G, H, a, b, engine=eng,
                                         timings=timings)
-
-    @contextlib.contextmanager
-    def host_group_ops_raise():
-        """Every host group operation of the port raises: the oracle's
-        Edwards formulas, RistrettoPoint's arithmetic and the host Horner
-        of TorchEngine.msm."""
-        def stub(*args, **kwargs):
-            raise RuntimeError("chip smoke failed: a host group operation "
-                               "ran on the prove path")
-        swaps = [(edwards, k) for k in ("add", "sub", "double", "scalar_mul")]
-        swaps += [(RistrettoPoint, k) for k in ("__add__", "__sub__",
-                                                "__mul__", "__rmul__",
-                                                "double")]
-        swaps += [(frontend, "combine_window_totals"),
-                  (engine_mod, "combine_window_totals")]
-        saved = [(o, k, getattr(o, k)) for o, k in swaps]
-        for o, k in swaps:
-            setattr(o, k, stub)
-        try:
-            yield
-        finally:
-            for o, k, v in saved:
-                setattr(o, k, v)
 
     # the counted run: the fixture's three cases, host group ops raising
     reset()
@@ -814,6 +868,149 @@ def prove_phase(smi, dev, bp32, pc, reset, counts):
           f"{cuda_ms(lambda: msm.window_totals_small(pts2k, dense, 8), 10):.4f}"
           f" ms [{smi}]", flush=True)
     return prove_path
+
+
+def r1cs_prove_phase(smi, dev, r1cs_bp, pc, reset, counts):
+    """Phase 10c: R1CS proving and transaction building on the card (the
+    R1CS Prover, MuSig's signers and build_tx on TorchEngine) from the
+    committed R1CS prover fixture (zkvm_tpu_torch/data/
+    prove_r1cs_seeded.bin, made by the JAX package); -> the path's launch
+    counts (the proves, the builds and their verification)."""
+    from zkvm_tpu_torch import fixture
+    from zkvm_tpu_torch.constants import LABEL_ZKVM_TXID
+    from zkvm_tpu_torch.crypto import musig, starsig
+    from zkvm_tpu_torch.kernels.engine import TorchEngine
+    from zkvm_tpu_torch.oracle.merlin import Transcript
+    from zkvm_tpu_torch.proofs.errors import ProofError, VerificationError
+    from zkvm_tpu_torch.proofs.r1cs import Prover, R1CSProof
+    from zkvm_tpu_torch.vm import Tx, build_tx, verify_tx
+    from zkvm_tpu_torch.vm.errors import VMError
+
+    cases = fixture.load_prove_r1cs()
+    r1cs_cases, tx_cases = cases[:2], cases[2:]
+    programs = fixture.tx_programs(cases)      # host-formula commitments
+    eng = TorchEngine(dev)
+
+    def prove(case, timings=None):
+        return fixture.r1cs_prover(case, eng, timings).prove(r1cs_bp)
+
+    def build(i, timings=None):
+        prog, header, keys = programs[i]
+        return build_tx(prog, header, r1cs_bp, keys, engine=eng,
+                        timings=timings)
+
+    def rejected(fn):
+        try:
+            fn()
+        except (ProofError, VMError, ValueError):
+            return True
+        return False
+
+    # the counted run: both circuits with every host group operation
+    # raising; the transactions with the R1CS prover's and MuSig's raising
+    # (the VM's issue makes its flavor commitment with the host formula);
+    # then their verification
+    reset()
+    with host_group_ops_raise():
+        proofs = [prove(c) for c in r1cs_cases]
+    with host_group_ops_raise_in((Prover, "commit"), (Prover, "prove"),
+                                 (musig, "sign_multi")):
+        built = [build(i) for i in range(len(tx_cases))]
+    made = counts()
+    require(all(made[i] > 0 for i in (1, 2, 3, 12)),
+            f"the R1CS prove path skipped a kernel: {made}")
+    for proof, c in zip(proofs, r1cs_cases):
+        wire = proof.to_bytes()
+        require(wire == c.wire, f"the {c.kind} proof differs from the JAX "
+                                "prover's")
+        fx = fixture.r1cs_fixture(c)
+        fixture.r1cs_verifier(fx).verify(R1CSProof.from_bytes(wire), pc,
+                                         r1cs_bp, engine=eng)
+        bad = bytearray(wire)
+        bad[11 * 32] ^= 1                                # t_x's low bit
+        require(rejected(lambda: fixture.r1cs_verifier(fx).verify(
+            R1CSProof.from_bytes(bytes(bad)), pc, r1cs_bp, engine=eng)),
+            f"the {c.kind} proof with a flipped t_x bit was accepted")
+        print(f"R1CS prove {c.kind} ({len(R1CSProof.from_bytes(wire).ipp_proof.L_vec)}"
+              f" rounds, every host group operation raising): bytes equal "
+              "to the fixture's; Verifier.verify accepts, a flipped t_x "
+              "bit rejects", flush=True)
+    for (tx, vtx), c, (prog, _, _) in zip(built, tx_cases, programs):
+        require(vtx.id == c.txid and vtx.fee == c.fee
+                and tuple(e.encode() for e in vtx.log) == c.log
+                and tx.program == Tx.from_bytes(c.wire).program,
+                f"build_tx {c.kind}: txid, fee, log or program differs "
+                "from the JAX build_tx's")
+        wire = tx.to_bytes()
+        require(verify_tx(Tx.from_bytes(wire), r1cs_bp, engine=eng).id
+                == c.txid, f"verify_tx {c.kind}: txid")
+        signers = sum(ins.op == "signtx" for ins in prog)
+        t = Transcript(LABEL_ZKVM_TXID)
+        t.append_message(b"txid", vtx.id)
+        key = musig.Multikey([starsig.VerificationKey(c.points[0])]
+                             * signers).aggregated_key(eng)
+        starsig.verify(starsig.Signature.from_bytes(tx.signature), t, key,
+                       engine=eng)
+        for part in ("proof", "signature"):
+            require(rejected(lambda: verify_tx(Tx.from_bytes(
+                fixture.tampered_tx(wire, part)), r1cs_bp, engine=eng)),
+                f"build_tx {c.kind} with a flipped {part} byte was accepted")
+        print(f"build_tx {c.kind} (MuSig of {signers}, R1CS and MuSig host "
+              "group operations raising): txid, fee, log and program equal "
+              "to the JAX build_tx's; verify_tx and starsig.verify accept, "
+              "a flipped proof byte and a flipped signature byte reject",
+              flush=True)
+    path = counts()
+    print(f"R1CS prove path launches: proves and builds {made}; with their "
+          f"verification {path}", flush=True)
+
+    # times: min / median of 3 calls, wall beside CUDA events, each call's
+    # split (host_s: the wall less `parts`), the median of each key
+    def timed(fn, parts=(), reps=3):
+        walls, evs, runs = [], [], []
+        for _ in range(reps):
+            tm = {}
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            fn(tm)
+            end.record()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            evs.append(start.elapsed_time(end))
+            tm["host_s"] = walls[-1] - sum(tm.get(k, 0.0) for k in parts)
+            runs.append(tm)
+        med = {k: sorted(r.get(k, 0.0) for r in runs)[reps // 2]
+               for k in set(runs[0]) | set(parts)}
+        return (f"wall {min(walls):.4f} / {sorted(walls)[reps // 2]:.4f} s, "
+                f"events {min(evs):.2f} / {sorted(evs)[reps // 2]:.2f} ms "
+                f"(min / median of {reps})"), med
+
+    parts = ("commit_v_s", "commit_phase_s", "commit_t_s", "q_s", "ipp_s")
+    for c in r1cs_cases:
+        head, m = timed(lambda tm: prove(c, tm), parts)
+        k = m["rounds"]
+        print(f"R1CS prove {c.kind} (circuit laid, then prove): {head}; "
+              f"split (medians): V commitments {m['commit_v_s']:.4f} ("
+              f"{len(c.points)} calls), phase commitments "
+              f"{m['commit_phase_s']:.4f}, T {m['commit_t_s']:.4f}, Q "
+              f"{m['q_s']:.4f}, argument {m['ipp_s']:.4f} ({k:.0f} rounds; "
+              f"a round: wall {1e3 * m['ipp_round_s'] / k:.3f} ms = issue "
+              f"{1e3 * m['ipp_issue_s'] / k:.3f} + wait "
+              f"{1e3 * m['ipp_wait_s'] / k:.3f} + fetch "
+              f"{1e3 * m['ipp_fetch_s'] / k:.3f} + host "
+              f"{1e3 * m['ipp_host_s'] / k:.3f}; events: scalar step "
+              f"{m['ipp_scalar_ms'] / k:.3f} ms, MSMs + K4 "
+              f"{m['ipp_msm_ms'] / k:.3f} ms), host {m['host_s']:.4f} s "
+              f"[{smi}]", flush=True)
+    for i, c in enumerate(tx_cases):
+        head, m = timed(lambda tm: build(i, tm))
+        print(f"build_tx {c.kind}: {head}; split (medians): VM run "
+              f"{m['vm_s']:.4f}, signing {m['sign_s']:.4f}, prove "
+              f"{m['prove_s']:.4f} s [{smi}]", flush=True)
+    return path
 
 
 def main():
@@ -2221,10 +2418,15 @@ def main():
 
     # --------------------------------------------------------- phase 10b
     prove_path = prove_phase(smi, dev, bp32, pc, reset, counts)
-    launches = [sum(c) for c in zip(range_path, r1cs_path, entry, micro_path,
-                                    engine_path, tx_path, prove_path)]
-    require(all(c > 0 for c in launches), f"a kernel never launched: {launches}")
     mark("10b (prove path)")
+
+    # --------------------------------------------------------- phase 10c
+    r1cs_prove_path = r1cs_prove_phase(smi, dev, r1cs_bp, pc, reset, counts)
+    launches = [sum(c) for c in zip(range_path, r1cs_path, entry, micro_path,
+                                    engine_path, tx_path, prove_path,
+                                    r1cs_prove_path)]
+    require(all(c > 0 for c in launches), f"a kernel never launched: {launches}")
+    mark("10c (R1CS prove path)")
 
     # ---------------------------------------------------------- phase 11
     table = [  # key, name, source, replaced TPU kernel(s)

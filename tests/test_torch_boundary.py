@@ -16,6 +16,7 @@ import torch
 import zkvm_tpu_torch
 from zkvm_tpu_torch import fixture, native
 from zkvm_tpu_torch import micro as micro_bench
+from zkvm_tpu_torch.crypto import musig, starsig
 from zkvm_tpu_torch.kernels import (combine, decompress, gather, micro, msm,
                                     pointwise, sort)
 from zkvm_tpu_torch.kernels.engine import TorchEngine
@@ -23,10 +24,11 @@ from zkvm_tpu_torch.parallel.tx_batch import fused_verify_tx_batch
 from zkvm_tpu_torch.proofs.engine import get_engine
 from zkvm_tpu_torch.proofs.generators import BulletproofGens, PedersenGens
 from zkvm_tpu_torch.proofs.ipp import InnerProductProof
-from zkvm_tpu_torch.proofs.r1cs import R1CSProof
+from zkvm_tpu_torch.oracle.merlin import Transcript
+from zkvm_tpu_torch.proofs.r1cs import Prover, R1CSProof
 from zkvm_tpu_torch.proofs.rangeproof import RangeProof, batch_verify
 from zkvm_tpu_torch.proofs.transcript import ProofTranscript
-from zkvm_tpu_torch.vm import Tx, verify_tx
+from zkvm_tpu_torch.vm import Instruction, Tx, TxHeader, build_tx, verify_tx
 
 ROOT = Path(zkvm_tpu_torch.__file__).resolve().parent
 # the JAX package, and its micro-benchmarks (bench/pallas_micro.py)
@@ -85,7 +87,8 @@ def test_entry_point_without_device_needs_cuda():
 
 def test_engine_entry_points_without_device_need_cuda():
     """The default engine is a TorchEngine on the card: without one, the
-    engine and the entry points that ride it raise."""
+    engine and the entry points that ride it raise: the verifiers, the
+    provers, the signers and build_tx."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -112,6 +115,22 @@ def test_engine_entry_points_without_device_need_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         InnerProductProof.create(ProofTranscript(label), pc.B, [1, 1], [1, 1],
                                  bp.G(2, 1), bp.H(2, 1), [1, 2], [3, 4])
+    # the R1CS prover, the signers and build_tx
+    prover = Prover(pc, ProofTranscript(label))
+    prover.allocate_multiplier((2, 3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        prover.prove(bp)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Prover(pc, ProofTranscript(label)).commit(5, 7)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        starsig.VerificationKey.from_secret(5)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        starsig.sign(Transcript(b"msg"), 5)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        musig.sign_multi([5, 6], Transcript(b"msg"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_tx([Instruction("push", data=(10).to_bytes(8, "little")),
+                  Instruction("fee")], TxHeader(), bp)
 
 
 def test_kernel_wrappers_refuse_non_cuda_devices(monkeypatch, tmp_path):

@@ -4,8 +4,9 @@ package's prover on the same seeded witness RNG, values and blindings.
 The range proofs run on an engine over the port's oracle (the base
 Engine's plain prover calls and InnerProductProof.create_plain), so that
 no MSM twin runs; the device-resident argument (kernels/ipp_device.py)
-runs on TorchEngine("cpu"), the kernels' plain versions, at n = 4, its
-scalar limbs held against Python integers at every round, and so does one
+runs on TorchEngine("cpu"), the kernels' plain versions, at n = 4 with
+the R1CS argument's non-unit G factors (u on the upper half), its scalar
+limbs held against Python integers at every round, and so does one
 TorchEngine.msm_batch over groups of different lengths.
 """
 
@@ -132,6 +133,10 @@ def test_device_ipp_equals_the_plain_rounds_and_the_jax_argument():
     n = 4
     a, b, gf, hf = fixture.ipp_inputs(b"ipp-test", n)
     a[0] = a[1] = 0           # zero coefficients: round 1's c_L is zero
+    # the R1CS argument's factors: G's (1..1, u..u), H's y^-i times G's
+    u = pow(3, 100, L)
+    gf = [1] * (n // 2) + [u] * (n // 2)
+    hf = [g * h % L for g, h in zip(gf, hf)]
     bp, pc = BulletproofGens(n, 1), PedersenGens()
     G, H, Q = bp.G(n, 1), bp.H(n, 1), pc.B_blinding
     eng = TorchEngine("cpu")

@@ -1,15 +1,16 @@
-"""starsig: Schnorr signatures over Ristretto with Merlin transcripts, the
-verifier half.
+"""starsig: Schnorr signatures over Ristretto with Merlin transcripts.
 
-Upstream counterpart: slingshot/starsig/src/* — Signature::{verify,
+Upstream counterpart: slingshot/starsig/src/* — Signature::{sign, verify,
 verify_batch}, VerificationKey.  Protocol:
 
   R = r*B;  c = H(transcript, X, R);  s = r + c*x
   verify: s*B == R + c*X  (deferred as a PointOp for one-MSM batching)
 
 The transcript carries the message context (callers append the message or
-txid before signing), with the starsig domain label prefixed.  Signing
-(which needs a fixed-base multiplication on the card) is not ported yet.
+txid before signing), with the starsig domain label prefixed.  The
+signer's k·B (the key, the nonce) is Engine.basepoint_mul on the engine,
+the card's unless the caller passes another: variable-time in the secret
+scalar there (README, "Proving").
 """
 
 from __future__ import annotations
@@ -18,14 +19,21 @@ from dataclasses import dataclass
 
 from ..constants import L, LABEL_STARSIG
 from ..oracle import scalar
-from ..oracle.merlin import Transcript
+from ..oracle.merlin import Transcript, TranscriptRng
 from ..oracle.ristretto import RistrettoPoint
-from ..proofs.engine import Engine
+from ..proofs.engine import Engine, resolve_engine
 
 
 @dataclass(frozen=True)
 class VerificationKey:
     point: bytes  # compressed
+
+    @staticmethod
+    def from_secret(x: int,
+                    engine: Engine | None = None) -> "VerificationKey":
+        """x·B on `engine` (else the default engine, the card)."""
+        return VerificationKey(
+            resolve_engine(engine=engine).basepoint_mul(x).compress())
 
     def decompress(self) -> RistrettoPoint:
         return RistrettoPoint.decompress(self.point)
@@ -52,6 +60,26 @@ def _challenge(transcript: Transcript, X: bytes, R: bytes) -> int:
     t.append_message(b"X", X)
     t.append_message(b"R", R)
     return scalar.from_bytes_mod_order_wide(t.challenge_bytes(b"c", 64))
+
+
+def sign(transcript: Transcript, privkey: int,
+         rng: TranscriptRng | None = None,
+         engine: Engine | None = None) -> Signature:
+    """Sign the transcript state (caller appended the message); the key's
+    and the nonce's k·B run on `engine` (else the default engine)."""
+    eng = resolve_engine(engine=engine)
+    x = privkey % L
+    X = VerificationKey.from_secret(x, eng).point
+    if rng is None:
+        rng = (
+            transcript.clone().build_rng()
+            .rekey_with_witness_bytes(b"x", scalar.to_bytes(x))
+            .finalize()
+        )
+    r = rng.random_scalar()
+    R = eng.basepoint_mul(r).compress()
+    c = _challenge(transcript, X, R)
+    return Signature((r + c * x) % L, R)
 
 
 def verify(sig: Signature, transcript: Transcript, key: VerificationKey,

@@ -33,10 +33,20 @@ for an argument u32 length and its InnerProductProof.to_bytes() (L_vec and
 R_vec interleaved, then a and b).  A range proof's witness RNG is
 witness_rng(seed); an argument's inputs are ipp_inputs(seed, n) over
 BulletproofGens(n, 1)'s party 0 with Q = PedersenGens().B_blinding.
+
+R1CS prover fixture (little-endian; tests/test_torch_r1cs_prove_fixture.py
+makes it with the JAX package's prover and build_tx): magic b"ZKPROVR1",
+u32 case count, then per case u8 kind (an index into PROVE_R1CS_KINDS),
+u32 generator capacity, then the length-prefixed (u32) seed, label and
+wire, u32 count and that many u32 params, u64 values, 32-byte scalars and
+32-byte points, the length-prefixed txid, u64 fee, u32 count and that
+many length-prefixed log entries (R1CSProveCase says what each field
+holds for each kind).
 """
 
 from __future__ import annotations
 
+import contextlib
 import random
 import struct
 from dataclasses import dataclass
@@ -57,6 +67,9 @@ TX_KINDS = ("issue", "payment", "call", "signid", "signtag", "unblind",
 PROVE = DATA / "prove_seeded_n64.bin"
 PROVE_MAGIC = b"ZKPROVE1"
 PROVE_KINDS = ("range", "ipp")
+PROVE_R1CS = DATA / "prove_r1cs_seeded.bin"
+PROVE_R1CS_MAGIC = b"ZKPROVR1"
+PROVE_R1CS_KINDS = ("cloak", "range", "issue", "payment")
 
 
 def wire_len(n: int, m: int) -> int:
@@ -346,3 +359,169 @@ def load_prove(path=PROVE) -> list[ProveCase]:
     if off != len(data):
         raise ValueError("trailing bytes in a prover fixture")
     return cases
+
+
+# ------------------------------------------------------ R1CS prover, txs
+@dataclass
+class R1CSProveCase:
+    """One case of the R1CS prover fixture.
+
+    cloak: params (inputs, outputs, bits), values q and f of each input
+    then each output.  range: params (bits,), values the committed values,
+    scalars their blindings, points their commitments.  Both: seed the
+    witness RNG's (witness_rng), label the transcript's, wire the
+    R1CSProof's bytes.  issue and payment: seed the blinding draws'
+    (seeded_blindings, over every transaction case in file order), label
+    the token's metadata, params (quantity issued or paid,), scalars
+    [issuer key], points [issuer predicate] (+ [payee predicate] for a
+    payment, which spends the two issues before it), wire the Tx's bytes,
+    with the JAX build_tx's txid, fee and encoded log entries."""
+    kind: str
+    gens_capacity: int
+    seed: bytes
+    label: bytes
+    wire: bytes
+    params: tuple[int, ...]
+    values: list[int]
+    scalars: list[int]
+    points: list[bytes]
+    txid: bytes = b""
+    fee: int = 0
+    log: tuple[bytes, ...] = ()
+
+
+def _blob(b: bytes) -> bytes:
+    return struct.pack("<I", len(b)) + b
+
+
+def dump_prove_r1cs(path, cases: list[R1CSProveCase]) -> None:
+    blob = bytearray(PROVE_R1CS_MAGIC + struct.pack("<I", len(cases)))
+    for c in cases:
+        blob += struct.pack("<BI", PROVE_R1CS_KINDS.index(c.kind),
+                            c.gens_capacity)
+        blob += _blob(c.seed) + _blob(c.label) + _blob(c.wire)
+        blob += struct.pack(f"<I{len(c.params)}I", len(c.params), *c.params)
+        blob += struct.pack(f"<I{len(c.values)}Q", len(c.values), *c.values)
+        blob += struct.pack("<I", len(c.scalars)) + b"".join(
+            x.to_bytes(32, "little") for x in c.scalars)
+        if any(len(pt) != 32 for pt in c.points):
+            raise ValueError("a point is 32 bytes")
+        blob += struct.pack("<I", len(c.points)) + b"".join(c.points)
+        blob += _blob(c.txid) + struct.pack("<QI", c.fee, len(c.log))
+        blob += b"".join(_blob(e) for e in c.log)
+    Path(path).write_bytes(bytes(blob))
+
+
+def load_prove_r1cs(path=PROVE_R1CS) -> list[R1CSProveCase]:
+    data = Path(path).read_bytes()
+    if data[:8] != PROVE_R1CS_MAGIC:
+        raise ValueError("not an R1CS prover fixture")
+    off = 8
+
+    def take(size: int) -> bytes:
+        nonlocal off
+        if off + size > len(data):
+            raise ValueError("truncated R1CS prover fixture")
+        off += size
+        return data[off - size: off]
+
+    def u32() -> int:
+        return struct.unpack("<I", take(4))[0]
+
+    def blob() -> bytes:
+        return take(u32())
+
+    cases = []
+    for _ in range(u32()):
+        kind, cap = struct.unpack("<BI", take(5))
+        if kind >= len(PROVE_R1CS_KINDS):
+            raise ValueError("bad case in an R1CS prover fixture")
+        seed, label, wire = blob(), blob(), blob()
+        params = tuple(u32() for _ in range(u32()))
+        k = u32()
+        values = list(struct.unpack(f"<{k}Q", take(8 * k)))
+        scalars = [int.from_bytes(take(32), "little") for _ in range(u32())]
+        points = [take(32) for _ in range(u32())]
+        txid = blob()
+        (fee,) = struct.unpack("<Q", take(8))
+        log = tuple(blob() for _ in range(u32()))
+        cases.append(R1CSProveCase(PROVE_R1CS_KINDS[kind], cap, seed, label,
+                                   wire, params, values, scalars, points,
+                                   txid, fee, log))
+    if off != len(data):
+        raise ValueError("trailing bytes in an R1CS prover fixture")
+    return cases
+
+
+def r1cs_fixture(case: R1CSProveCase) -> R1CSFixture:
+    """An R1CS case as the verifier's fixture (r1cs_verifier lays it)."""
+    return R1CSFixture(case.label, case.kind, case.gens_capacity,
+                       case.params, list(case.points), case.wire)
+
+
+def r1cs_prover(case: R1CSProveCase, engine=None,
+                timings: dict | None = None):
+    """A Prover with the case's circuit and witness laid on it, its
+    witness RNG witness_rng(case.seed), ready for prove."""
+    from .gadgets import Value, allocate_value, cloak, range_proof_gadget
+    from .proofs.generators import PedersenGens
+    from .proofs.r1cs import Prover
+    from .proofs.transcript import ProofTranscript
+
+    prover = Prover(PedersenGens(), ProofTranscript(case.label),
+                    rng=witness_rng(case.seed), engine=engine,
+                    timings=timings)
+    if case.kind == "cloak":
+        k_in, k_out, bits = case.params
+        vals = [allocate_value(prover, Value(q, f)) for q, f in
+                zip(case.values[::2], case.values[1::2], strict=True)]
+        cloak(prover, vals[:k_in], vals[k_in:k_in + k_out], range_bits=bits)
+    elif case.kind == "range":
+        (bits,) = case.params
+        for v, b in zip(case.values, case.scalars, strict=True):
+            range_proof_gadget(prover, prover.commit(v, b)[1], bits, v)
+    else:
+        raise ValueError(f"{case.kind!r} is not an R1CS case")
+    return prover
+
+
+@contextlib.contextmanager
+def seeded_blindings(seed: bytes, modules):
+    """Within the block, each module's _rand_scalar (the apps' blinding
+    draw, either package's) draws from one witness_rng(seed) in turn."""
+    draw = witness_rng(seed).random_scalar
+    saved = [m._rand_scalar for m in modules]
+    for m in modules:
+        m._rand_scalar = draw
+    try:
+        yield
+    finally:
+        for m, f in zip(modules, saved):
+            m._rand_scalar = f
+
+
+def tx_programs(cases: list[R1CSProveCase]):
+    """The transaction cases' programs rebuilt with the port's apps, their
+    blindings drawn from the first case's seed as the fixture's generator
+    drew them -> [(program, header, signing keys)] in case order."""
+    from .apps import Token, accounts, issue_program, token
+    from .apps.accounts import Receiver, Utxo, pay_program
+    from .vm.tx import Tx, TxEntry
+
+    txs = [c for c in cases if c.kind in ("issue", "payment")]
+    out, utxos = [], []
+    with seeded_blindings(txs[0].seed, [token, accounts]):
+        for c in txs:
+            pred, key = c.points[0], c.scalars[0]
+            tok = Token(pred, c.label)
+            if c.kind == "issue":
+                prog, out_q, out_f = issue_program(tok, c.params[0], pred)
+                # an encoded entry: u8 kind, u32 length, the payload
+                output = next(e[5:] for e in c.log
+                              if e[0] == TxEntry._KINDS["output"])
+                utxos.append(Utxo(output, out_q, out_f))
+            else:
+                prog, _, _ = pay_program(utxos[-2:], Receiver(
+                    c.points[1], c.params[0], tok.flavor))
+            out.append((prog, Tx.from_bytes(c.wire).header, {pred: key}))
+    return out

@@ -8,11 +8,12 @@ and the scalars, and runs frontend.window_totals_from_words on its device.
 The verifier's calls: msm combines the window totals on the host;
 msm_is_identity runs K4 on the card and fetches one int.  The prover's
 calls: msm_batch uploads every group's words at once, runs each group's
-window totals with no host sync between groups, folds all groups with K4
-horner_fold in one launch and fetches the points once; commit,
-commit_batch and bit_commit_batch (the base class's definitions) ride it,
-msm_secret is msm (the base class's definition), and ipp_create runs the
-device-resident inner-product argument (kernels/ipp_device.py).
+window totals with no host sync between groups, folds the groups of each
+window width with one K4 horner_fold launch and fetches the points once;
+basepoint_mul, commit, commit_batch and bit_commit_batch (the base
+class's definitions) ride it, msm_secret is msm (the base class's
+definition), and ipp_create runs the device-resident inner-product
+argument (kernels/ipp_device.py).
 
 Every MSM goes to the device: the JAX engine keeps MSMs under 2,048 points
 on the host because a TPU round trip costs ~24 ms there, which does not
@@ -24,6 +25,7 @@ its memory traffic depends on the secret scalars (README, "Proving").
 
 from __future__ import annotations
 
+import itertools
 import time
 
 import torch
@@ -106,37 +108,40 @@ class TorchEngine(Engine):
     def msm_batch(self, scalars_groups, points_groups,
                   ct: bool = False) -> list[RistrettoPoint]:
         """Independent MSMs on the device, one fetch for all of them: one
-        upload, decode and recode for every group, then each group's window
-        totals and one K4 launch.  Every group takes one window width (the
-        largest group's); a group whose own best width differs raises.  The
-        route does not depend on ct: secret scalars take the same
-        variable-time pipeline."""
+        upload and decode for every group; then for each window width
+        among the groups (each group takes its own best width, or the
+        engine's), one recode, each group's window totals and one K4
+        launch.  The route does not depend on ct: secret scalars take the
+        same variable-time pipeline."""
         groups = [(s.to_ints() if hasattr(s, "to_ints") else s, list(p))
                   for s, p in zip(scalars_groups, points_groups,
                                   strict=True)]
         if any(len(s) != len(p) for s, p in groups):
             raise ValueError("one scalar per point")
         out = [RistrettoPoint(edwards.IDENTITY) for _ in groups]
-        live = [i for i, (_, p) in enumerate(groups) if p]
-        if not live:
+        width = {i: self.wbits or best_wbits(len(p))
+                 for i, (_, p) in enumerate(groups) if p}
+        if not width:
             return out
-        sizes = [len(groups[i][1]) for i in live]
-        wbits = self.wbits or best_wbits(max(sizes))
-        if self.wbits is None and any(best_wbits(n) != wbits for n in sizes):
-            raise ValueError("msm_batch: groups of different window widths")
-        pw, sw = self.pack([x for i in live for x in groups[i][0]],
-                           [p for i in live for p in groups[i][1]])
+        order = sorted(width, key=width.get)      # one width's groups adjacent
+        pw, sw = self.pack([x for i in order for x in groups[i][0]],
+                           [p for i in order for p in groups[i][1]])
         points = words_to_points(to_device(pw, self.device))
-        digits = sm.signed_digits(
-            sm.decode_words_first(to_device(sw, self.device)), wbits)
-        totals, off = [], 0
-        for n in sizes:
-            totals.append(window_totals(points[:, :, off:off + n].contiguous(),
-                                        digits[off:off + n], wbits,
-                                        self.config))
-            off += n
-        folded = horner_fold(torch.stack(totals, 2).contiguous(), wbits)
-        for i, ep in zip(live, points_to_ints(folded)):
+        scalars = sm.decode_words_first(to_device(sw, self.device))
+        folded, off = [], 0
+        for wbits, members in itertools.groupby(order, key=width.get):
+            sizes = [len(groups[i][1]) for i in members]
+            digits = sm.signed_digits(scalars[:, off:off + sum(sizes)], wbits)
+            totals, at = [], 0
+            for n in sizes:
+                totals.append(window_totals(
+                    points[:, :, off + at:off + at + n].contiguous(),
+                    digits[at:at + n], wbits, self.config))
+                at += n
+            folded.append(horner_fold(torch.stack(totals, 2).contiguous(),
+                                      wbits))
+            off += at
+        for i, ep in zip(order, points_to_ints(torch.cat(folded, 2))):
             out[i] = RistrettoPoint(ep)
         return out
 

@@ -9,15 +9,17 @@ the first get_engine(): without a CUDA device that call raises, as the
 port's entry points do.
 
 The base class defines every prover call in terms of msm, as the JAX
-package's host Engine does without its native library, and ipp_create as
-InnerProductProof.create_plain: the plain definitions that the tests run
-over the oracle.  TorchEngine runs all of them on its device.
+package's host Engine does without its native library (basepoint_mul,
+the signers' and the R1CS prover's k·B, as one msm_batch group), and
+ipp_create as InnerProductProof.create_plain: the plain definitions that
+the tests run over the oracle.  TorchEngine runs all of them on its
+device.
 """
 
 from __future__ import annotations
 
 from ..constants import L
-from ..oracle.ristretto import RistrettoPoint
+from ..oracle.ristretto import BASEPOINT, RistrettoPoint
 
 
 class Engine:
@@ -50,6 +52,12 @@ class Engine:
         f = self.msm_secret if ct else self.msm
         return [f(s, p) for s, p in
                 zip(scalars_groups, points_groups, strict=True)]
+
+    def basepoint_mul(self, scalar: int, ct: bool = True) -> RistrettoPoint:
+        """scalar·B for the Ristretto basepoint B, one msm_batch group; ct
+        marks a secret scalar (a key, a nonce).  The JAX package's
+        fixed-base native table is not copied."""
+        return self.msm_batch([[scalar]], [[BASEPOINT]], ct=ct)[0]
 
     def commit(self, value: int, blinding: int, B: RistrettoPoint,
                B_blinding: RistrettoPoint) -> RistrettoPoint:

@@ -254,7 +254,7 @@ class Dealer:
         self.transcript.append_scalar(b"t_x_blinding", t_x_blinding)
         self.transcript.append_scalar(b"e_blinding", e_blinding)
         w = self.transcript.challenge_scalar(b"w")
-        Q = self.engine.msm_batch([[w]], [[self.pc_gens.B]])[0]
+        Q = self.engine.basepoint_mul(w, ct=False)
 
         l_vec: list[int] = []
         r_vec: list[int] = []

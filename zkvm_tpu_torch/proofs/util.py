@@ -1,7 +1,8 @@
 """Small helpers of the proof layer (upstream bulletproofs/src/util.rs):
-the range prover's vector and polynomial arithmetic mod ℓ on Python ints
-(VecPoly1, Poly2), bit decomposition, and a timing helper.  VecPoly3 and
-Poly6 belong to the R1CS prover, which the port does not have yet."""
+the provers' vector and polynomial arithmetic mod ℓ on Python ints
+(VecPoly1 and Poly2 for the range prover, VecPoly3 and Poly6 for the R1CS
+prover, whose VecPoly3 chain is the twin of its ScalarVec chain), bit
+decomposition, and a timing helper."""
 
 import time
 
@@ -63,6 +64,57 @@ class Poly2:
 
     def eval(self, x: int) -> int:
         return (self.t0 + x * (self.t1 + x * self.t2)) % L
+
+
+class VecPoly3:
+    """Degree-3 vector polynomial (upstream VecPoly3, used by the R1CS
+    prover)."""
+
+    def __init__(self, v0, v1, v2, v3):
+        self.v = [v0, v1, v2, v3]
+
+    @classmethod
+    def zero(cls, n: int) -> "VecPoly3":
+        return cls(*[[0] * n for _ in range(4)])
+
+    def special_inner_product(self, rhs: "VecPoly3") -> "Poly6":
+        """<l(X), r(X)> with the R1CS structure: self.v[0] == 0 and
+        rhs.v[2] == 0 (l = l1 X + l2 X² + l3 X³;  r = r0 + r1 X + r3 X³).
+        Upstream VecPoly3::special_inner_product."""
+        l = self.v
+        r = rhs.v
+        t1 = inner_product(l[1], r[0])
+        t2 = (inner_product(l[1], r[1]) + inner_product(l[2], r[0])) % L
+        t3 = (inner_product(l[2], r[1]) + inner_product(l[3], r[0])) % L
+        t4 = (inner_product(l[1], r[3]) + inner_product(l[3], r[1])) % L
+        t5 = inner_product(l[2], r[3])
+        t6 = inner_product(l[3], r[3])
+        return Poly6(0, t1, t2, t3, t4, t5, t6)
+
+    def eval(self, x: int) -> list[int]:
+        n = len(self.v[0])
+        out = []
+        for i in range(n):
+            acc = 0
+            for coeff in reversed(self.v):
+                acc = (acc * x + coeff[i]) % L
+            out.append(acc)
+        return out
+
+
+class Poly6:
+    """t(X) = sum t_i X^i, degree 6 (upstream Poly6)."""
+
+    def __init__(self, *ts):
+        if len(ts) != 7:
+            raise ValueError("Poly6 takes seven coefficients")
+        self.t = [t % L for t in ts]
+
+    def eval(self, x: int) -> int:
+        acc = 0
+        for coeff in reversed(self.t):
+            acc = (acc * x + coeff) % L
+        return acc
 
 
 def bit_decompose(v: int, n: int) -> list[int]:

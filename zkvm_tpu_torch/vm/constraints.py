@@ -14,6 +14,7 @@ leaves them empty.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 
 from ..constants import L
@@ -31,9 +32,13 @@ class Commitment:
     witness: tuple[ScalarWitness, int] | None = None  # (value, blinding)
 
     @staticmethod
-    def blinded(value: ScalarWitness, blinding: int) -> "Commitment":
+    def blinded(value: ScalarWitness,
+                blinding: int | None = None) -> "Commitment":
         """value*B + blinding*B_blinding on the host (the oracle's point
-        arithmetic; the VM opens one per `issue`, its flavor's)."""
+        arithmetic; the VM opens one per `issue`, its flavor's), with a
+        random blinding from os.urandom when none is given."""
+        if blinding is None:
+            blinding = sc.from_bytes_mod_order_wide(os.urandom(64))
         pc = PedersenGens()
         pt = pc.commit(value.to_scalar(), blinding).compress()
         return Commitment(pt, witness=(value, blinding))

@@ -7,9 +7,8 @@ commitments opaque and accumulates deferred PointOps.  Every instruction is
 host-side-cheap; all heavy math exits through the R1CS constraint system and
 the deferred point-op batch (the device seams).
 
-The port keeps the interpreter whole, prover branches included, and has
-only the verifier's delegate (vm/verifier.py); the prover's is not ported
-yet.
+The port keeps the interpreter whole: the prover's delegate is in
+vm/prover.py, the verifier's in vm/verifier.py.
 """
 
 from __future__ import annotations

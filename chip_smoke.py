@@ -2,16 +2,16 @@
 
     python3 chip_smoke.py
 
-1. prints the card's name and power limit, builds the seventeen CUDA
+1. prints the card's name and power limit, builds the nineteen CUDA
    kernels (K1 ristretto_decode, K2 bucket_accumulate, K3 bucket_fold, K4
    horner_check, K5 seg_combine, K6 point_add, K7 fe_mul, K8 fe_add, K9
    radix_sort, K10 gather_words, K11 bucket_accumulate_words, K12
-   bucket_accumulate_affine, the small route's K5s small_scan, and the
+   bucket_accumulate_affine, the small route's K5s small_scan, the
    micro-kernels K13 micro_mul, K14 micro_parts, K15 micro_add_chain, K16
-   micro_add_chain_lanes) from kernels/csrc, one nvcc per source in
-   parallel (K11 and K12 are entries of K2's source, K13-K16 of
-   field_micro.cu), and prints the build time and each kernel function's
-   ptxas registers and spills;
+   micro_add_chain_lanes, and the constant-time K17 fixed_base_ct and K18
+   msm_ct) from kernels/csrc, one nvcc per source in parallel (K11 and K12
+   are entries of K2's source, K13-K16 of field_micro.cu), and prints the
+   build time and each kernel function's ptxas registers and spills;
 1b. builds the native host library (zkvm_tpu_torch/native, g++
    -march=native on this machine) and prints its build time beside
    os.cpu_count(); holds every native entry and host half byte for byte
@@ -129,7 +129,8 @@
    TorchEngine: commitments through msm_batch and K4, the inner-product
    argument resident on the card, kernels/ipp_device.py) and a standalone
    n = 1,024 argument (InnerProductProof.create), each byte-equal to the
-   fixture; K2, K3, K4 and K5s must have launched.  verify_multiple and
+   fixture; K2, K3, K4, K5s, K17 and K18 must have launched (the
+   commitments on secret scalars take K17 and K18).  verify_multiple and
    InnerProductProof.verify accept each and reject a flipped t_x bit (a +
    1); K4's folded identity encodes as 32 zero bytes.  Times each call
    (events and wall, min and median of 3; m = 32 also with its stage
@@ -149,7 +150,7 @@
    builds its two issues and its payment (MuSig of two parties) with the
    port's apps and build_tx, the R1CS prover's and MuSig's host group
    operations raising: txid, fee, log and program equal to the JAX
-   build_tx's; K2, K3, K4 and K5s must have launched.  R1CS
+   build_tx's; K2, K3, K4, K5s, K17 and K18 must have launched.  R1CS
    Verifier.verify accepts each proof and rejects a flipped t_x bit;
    verify_tx accepts each transaction and rejects a flipped proof byte and
    a flipped signature byte; starsig.verify accepts each MuSig signature.
@@ -157,6 +158,31 @@
    min and median of 3 calls, wall beside CUDA events, and splits them
    (medians): V commitments, phase commitments, T, Q, the argument and
    the host; the VM run, signing and the prove;
+10d. holds the constant-time kernels against their plain versions bit for
+   bit: K17 fixed_base_ct's tables of B and B_blinding (built on the card)
+   and its batches of 1, 4, 512 (the 2^15 circuit's V) and 4,096
+   commitments, with one and two bases; K18 msm_ct on groups of 1, 2,
+   129 x 2 (m = 1's A and S), 129 x 32 (m = 32's bit commitments) and the
+   2^15 circuit's phases (65,537 + 32,769 + 65,537 points), scalars 0,
+   ℓ - 1 and 2^64 - 1 among random ones; K18 + K4 equal to the bucket route
+   as points; K18 refusing a scratch one element short; times both
+   (events, min and median of 5, and the profiler's kernel time, min and
+   median of 3 traces) on all-zero, all ℓ - 1 and random scalars and
+   prints the spread; then, with every launch count set to 0, runs
+   basepoint_mul, commit, commit_batch, msm_secret, msm_batch(ct=True) and
+   bit_commit_batch on TorchEngine with msm.window_totals, torch.sort and
+   the K2, K3, K5s and K9 wrappers raising, equal to the public route and
+   the host formula, and times V's engine.commit;
+10e. with every launch count set to 0, derives the committed keys and MPC
+   fixture's keytree cases and PredicateTrees on the card
+   (zkvm_tpu_torch/data/keys_mpc_seeded.bin, made by the JAX package),
+   builds its taproot `call` transaction with build_tx (txid, fee, log and
+   program equal to the JAX build_tx's; verify_tx accepts), runs
+   distributed_prove over ThreadLocalTransport with 4 hosts x 8 parties at
+   n = 64, a TorchEngine a host (commitments equal to the fixture's,
+   verify_multiple accepts, a flipped t_x bit rejects; min and median of 3
+   walls), and one host corrupting its share, attributed to the
+   reference's party positions; K17 and K18 must have launched;
 11. prints each phase's seconds, the kernels line (every launch count must
    be > 0) and, last, the device line.
 
@@ -621,6 +647,40 @@ def launch_check():
 
 
 @contextlib.contextmanager
+def swapped(swaps, stub):
+    """Each (owner, attribute) of swaps set to stub while the block runs."""
+    saved = [(o, k, getattr(o, k)) for o, k in swaps]
+    for o, k in swaps:
+        setattr(o, k, stub)
+    try:
+        yield
+    finally:
+        for o, k, v in saved:
+            setattr(o, k, v)
+
+
+def short_scratch(owner, cases):
+    """cases: (name, owner's scratch size helper, call, wrapper).  Each
+    call runs with its helper made one element short; each must raise that
+    the scratch is short, its wrapper counting no launch."""
+    refused = []
+    for name, attr, call, fn in cases:
+        real, before = getattr(owner, attr), fn.launches
+        with swapped([(owner, attr)], lambda *a, real=real: real(*a) - 1):
+            try:
+                call()
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                if "scratch" in str(e) and fn.launches == before:
+                    refused.append(name)
+    names = [c[0] for c in cases]
+    require(refused == names, f"a scratch one element short was not "
+                              f"refused: {refused} of {names}")
+    print(f"{', '.join(names)} with a scratch one element short: "
+          f"refused, nothing launched", flush=True)
+
+
+@contextlib.contextmanager
 def host_group_ops_raise():
     """Every host group operation of the port raises: the oracle's Edwards
     formulas, RistrettoPoint's arithmetic and the host Horner of
@@ -638,14 +698,8 @@ def host_group_ops_raise():
                                             "__rmul__", "double")]
     swaps += [(frontend, "combine_window_totals"),
               (engine_mod, "combine_window_totals")]
-    saved = [(o, k, getattr(o, k)) for o, k in swaps]
-    for o, k in swaps:
-        setattr(o, k, stub)
-    try:
+    with swapped(swaps, stub):
         yield
-    finally:
-        for o, k, v in saved:
-            setattr(o, k, v)
 
 
 @contextlib.contextmanager
@@ -716,7 +770,7 @@ def prove_phase(smi, dev, bp32, pc, reset, counts):
                 f"the {name} proof differs from the JAX prover's")
     require(arg.to_bytes() == ipp.wire,
             "the n = 1024 argument differs from the JAX prover's")
-    require(all(prove_path[i] > 0 for i in (1, 2, 3, 12)),
+    require(all(prove_path[i] > 0 for i in (1, 2, 3, 12, 17, 18)),
             f"the prove path skipped a kernel: {prove_path}")
     print(f"prove path (m = 1, m = 32, n = {ipp.n} argument, every host "
           f"group operation raising): bytes equal to the fixture's; "
@@ -917,7 +971,7 @@ def r1cs_prove_phase(smi, dev, r1cs_bp, pc, reset, counts):
                                  (musig, "sign_multi")):
         built = [build(i) for i in range(len(tx_cases))]
     made = counts()
-    require(all(made[i] > 0 for i in (1, 2, 3, 12)),
+    require(all(made[i] > 0 for i in (1, 2, 3, 12, 17, 18)),
             f"the R1CS prove path skipped a kernel: {made}")
     for proof, c in zip(proofs, r1cs_cases):
         wire = proof.to_bytes()
@@ -1013,6 +1067,380 @@ def r1cs_prove_phase(smi, dev, r1cs_bp, pc, reset, counts):
     return path
 
 
+def ct_phase(smi, dev, r1cs_bp, pc, reset, counts):
+    """Phase 10d: K17 fixed_base_ct and K18 msm_ct on the card, the routes
+    of every call on secret scalars; -> (their results for the kernels
+    line, the launch counts of the route check's engine calls)."""
+    from zkvm_tpu_torch.constants import L
+    from zkvm_tpu_torch.kernels import engine as engine_mod
+    from zkvm_tpu_torch.kernels import fixed_base as fb
+    from zkvm_tpu_torch.kernels import msm, msm_ct, sort
+    from zkvm_tpu_torch.kernels import scalarmod as sm
+    from zkvm_tpu_torch.kernels.combine import horner_fold
+    from zkvm_tpu_torch.kernels.engine import TorchEngine, _point_words
+    from zkvm_tpu_torch.kernels.words import (scalar_words, to_device,
+                                              words_to_points)
+
+    eng = TorchEngine(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2032)
+    special = to_device(scalar_words([0, L - 1, (1 << 64) - 1, 1]).T, dev)
+
+    def scalar_words_dev(n, kind):
+        """(8, n) scalar words on the card: "zero", "max" (ℓ - 1 each),
+        "random" below 2^252, or "edges" (random with 0, ℓ - 1, 2^64 - 1
+        and 1 in the first columns)."""
+        if kind == "zero":
+            return torch.zeros((8, n), dtype=torch.int32, device=dev)
+        if kind == "max":
+            return special[:, 1:2].expand(8, n).contiguous()
+        w = torch.randint(-2**31, 2**31 - 1, (8, n), dtype=torch.int32,
+                          device=dev, generator=gen)
+        w[7] &= 0x0FFFFFFF
+        if kind == "edges":
+            k = min(n, 4)
+            w[:, :k] = special[:, :k]
+        return w
+
+    def halves(w):
+        n = w.shape[1] // 2
+        return w[:, :n].contiguous(), w[:, n:].contiguous()
+
+    # K17's tables of B and B_blinding, built on the card
+    tabs = []
+    for p in (pc.B, pc.B_blinding):
+        pt = words_to_points(to_device(_point_words(p)[:, :, None],
+                                       dev)).contiguous()
+        tk, tp = fb.table(pt), fb.table_plain(pt)
+        torch.cuda.synchronize()
+        require(torch.equal(tk, tp), "K17's table differs from its plain "
+                                     "version")
+        tabs.append(tk)
+    require(torch.equal(eng.fixed_table(pc.B), tabs[0]),
+            "the engine's resident table of B differs")
+    tab_b, tab_bb = tabs
+
+    # K17 bit for bit: batches of 1, 4, 512 (the 2^15 circuit's V) and
+    # 4,096 commitments, and basepoint_mul's one base
+    err17 = 0
+    for n in (1, 4, 512, 4096):
+        wv, wb = halves(scalar_words_dev(2 * n, "edges"))
+        for args in ((tab_b, wv, tab_bb, wb), (tab_b, wv)):
+            k, p = fb.fixed_base_ct(*args), fb.fixed_base_plain(*args)
+            torch.cuda.synchronize()
+            require(torch.equal(k, p), f"K17 differs from its plain version "
+                                       f"(n = {n}, {len(args) // 2} bases)")
+            err17 = max(err17, max_abs_err(k, p))
+    vs, bs = [0, L - 1, (1 << 64) - 1, 12345], [7, 0, L - 1, (1 << 63) + 1]
+    got = eng.commit_batch(vs, bs, pc.B, pc.B_blinding)
+    require([g.compress() for g in got] == [pc.commit(v, b).compress()
+                                            for v, b in zip(vs, bs)],
+            "K17's commitments differ from the host formula")
+    require(eng.basepoint_mul(L - 1) == pc.B * (L - 1),
+            "K17's basepoint_mul differs from the host formula")
+    print(f"K17 fixed_base_ct: its tables of B and B_blinding, and batches "
+          f"of 1, 4, 512 and 4,096 (one and two bases, scalars 0, ℓ - 1, "
+          f"2^64 - 1 among random ones) equal to the plain version bit for "
+          f"bit; commitments equal to the host formula [{smi}]", flush=True)
+
+    # K18 bit for bit: groups of 1, 2, 129 (m = 1's A and S), 32 x 129
+    # (m = 32's bit commitments) and the 2^15 circuit's phase shapes
+    gens = [pc.B_blinding] + r1cs_bp.G(32768, 1) + r1cs_bp.H(32768, 1)
+    allp = words_to_points(to_device(np.ascontiguousarray(np.stack(
+        [_point_words(p) for p in gens]).transpose(1, 2, 0)), dev))
+    phase = [65537, 32769, 65537]
+    shapes = {"1": [1], "2": [2], "129 x 2": [129, 129],
+              "129 x 32": [129] * 32, "2^15 phases": phase}
+
+    def points_for(sizes):
+        return torch.cat([allp[:, :, :n] for n in sizes], 2).contiguous()
+
+    err18, cases = 0, {}
+    for name, sizes in shapes.items():
+        pts, w = points_for(sizes), scalar_words_dev(sum(sizes), "edges")
+        k, p = msm_ct.msm_ct(pts, w, sizes), msm_ct.msm_ct_plain(pts, w,
+                                                                 sizes)
+        torch.cuda.synchronize()
+        require(torch.equal(k, p), f"K18 differs from its plain version "
+                                   f"({name})")
+        err18 = max(err18, max_abs_err(k, p))
+        cases[name] = (pts, w, sizes, k)
+    # as points: K18 then K4 against the public route on the same scalars
+    for name, g in (("129 x 32", 5), ("2^15 phases", 1)):
+        pts, w, sizes, k = cases[name]
+        lo, hi = sum(sizes[:g]), sum(sizes[:g + 1])
+        ct_pt = horner_fold(k[:, :, g:g + 1].contiguous(), fb.WBITS)
+        wb = msm.best_wbits(hi - lo)
+        pub = msm.window_totals(pts[:, :, lo:hi].contiguous(),
+                                sm.signed_digits(sm.decode_words_first(
+                                    w[:, lo:hi]), wb), wb)
+        pub_pt = horner_fold(pub.unsqueeze(2).contiguous(), wb)
+        require(same_ristretto(ct_pt, pub_pt),
+                f"K18 + K4 differ from the bucket route ({name})")
+    print(f"K18 msm_ct: groups of {', '.join(shapes)} points (scalars 0, "
+          f"ℓ - 1, 2^64 - 1 among random ones) equal to the plain version "
+          f"bit for bit; with K4 equal to the bucket route as points "
+          f"[{smi}]", flush=True)
+    pts, w, sizes, _ = cases["129 x 2"]
+    short_scratch(msm_ct, [("K18", "scratch_len",
+                            lambda: msm_ct.msm_ct(pts, w, sizes),
+                            msm_ct.msm_ct)])
+
+    # times on three sets of scalars: all zero, all ℓ - 1, random
+    def spread(tag, make, call, kernels):
+        """Events (each call alone) and profiler kernel time (three traces
+        of three calls) on each scalar set -> the random set's medians."""
+        out = {}
+        for kind in ("zero", "max", "random"):
+            args = make(kind)
+            call(*args)
+            evs = []
+            for _ in range(5):
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                torch.cuda.synchronize()
+                start.record()
+                call(*args)
+                end.record()
+                torch.cuda.synchronize()
+                evs.append(start.elapsed_time(end))
+            devs = [device_ms(lambda: call(*args), kernels, 3)
+                    for _ in range(3)]
+            devs = sorted(x for x in devs if x is not None)
+            out[kind] = (min(evs), sorted(evs)[2],
+                         devs[0] if devs else None,
+                         devs[len(devs) // 2] if devs else None)
+        meds = [v[1] for v in out.values()]
+        print(f"{tag} by scalar set, ms (event min / median of 5; device "
+              "min / median of 3 traces): " + "; ".join(
+                  f"{k} {v[0]:.4f} / {v[1]:.4f}, device {fmt_ms(v[2])} / "
+                  f"{fmt_ms(v[3])}" for k, v in out.items())
+              + f"; spread of the event medians (max - min) / min "
+              f"{(max(meds) - min(meds)) / min(meds):.4f} [{smi}]",
+              flush=True)
+        return out["random"]
+
+    def k17_inputs(n):
+        def make(kind):
+            wv, wb = halves(scalar_words_dev(2 * n, kind))
+            return tab_b, wv, tab_bb, wb
+        return make
+
+    t17 = {n: spread(f"K17 {n} commitments", k17_inputs(n),
+                     fb.fixed_base_ct, {"fixed_base_kernel": 1})
+           for n in (512, 4096)}
+
+    def k18_inputs(sizes):
+        pts = points_for(sizes)
+        return lambda kind: (pts, scalar_words_dev(sum(sizes), kind), sizes)
+
+    t18 = {}
+    for name in ("129 x 32", "2^15 phases"):
+        sizes = shapes[name]
+        lv = len(msm_ct.plan(sizes))
+        t18[name] = spread(f"K18 {name}", k18_inputs(sizes), msm_ct.msm_ct,
+                           {"msm_ct_chunk_kernel": 1,
+                            "msm_ct_reduce_kernel": lv - 1})
+
+    # bounds: ADD products per addition, as K3's and K5s's are counted
+    n = 512
+    args17 = k17_inputs(n)("random")
+    a17 = fb.fixed_base_ct(*args17)
+    res17 = dict(
+        err=err17, ms=t17[n][1], dev_ms=t17[n][3],
+        plain_ms=cuda_ms(lambda: fb.fixed_base_plain(*args17), 1),
+        lib_ms=None,
+        bound=bound_ms(2 * n * 32 + 2 * tab_b.numel() * 4 + a17.numel() * 4,
+                       2 * n * 64 * ADD))
+    sizes = shapes["2^15 phases"]
+    N, lv = sum(sizes), msm_ct.plan(sizes)
+    tree_adds = sum(len(a[0]) - len(b[0]) for a, b in zip(lv, lv[1:])) * 64
+    pts, w = points_for(sizes), scalar_words_dev(N, "random")
+    res18 = dict(
+        err=err18, ms=t18["2^15 phases"][1], dev_ms=t18["2^15 phases"][3],
+        plain_ms=cuda_ms(lambda: msm_ct.msm_ct_plain(pts, w, sizes), 1),
+        lib_ms=None,
+        bound=bound_ms(N * (160 + 32) + len(sizes) * 64 * 160,
+                       (N * 71 + tree_adds) * ADD + 8 * N * MUL))
+    for key, v, what in (("K17", res17, "512 commitments, two bases"),
+                         ("K18", res18, "the 2^15 phases, 163,843 points")):
+        print(f"{key} ({what}): kernel_ms={v['ms']:.4f} device_only_ms="
+              f"{fmt_ms(v['dev_ms'])} plain_ms={v['plain_ms']:.2f} "
+              f"bound_ms={v['bound'][0]:.5f} ({v['bound'][1]}) "
+              f"max_abs_err={v['err']} [{smi}]", flush=True)
+
+    # the routes: every call on secret scalars through the engine with the
+    # bucket route, torch.sort and K2, K3, K5s and K9 raising
+    def stub(*args, **kwargs):
+        raise RuntimeError("chip smoke failed: a call on secret scalars "
+                           "reached the bucket route")
+    swaps = [(msm, "window_totals"), (msm, "window_totals_small"),
+             (msm, "window_totals_large"), (engine_mod, "window_totals"),
+             (msm, "bucket_accumulate"), (msm, "bucket_fold"),
+             (msm, "small_scan"), (msm, "radix_sort"), (sort, "radix_sort"),
+             (torch, "sort")]
+    gl = [gens[1:65], gens[32769:32833]]           # 64 of G, 64 of H
+    rs = np.random.default_rng(2033)
+    ks = [[int.from_bytes(rs.bytes(32), "little") % L for _ in range(n)]
+          for n in (129, 2, 0)]
+    groups = [[gens[0]] + gl[0] + gl[1], gens[1:3], []]
+    bits = [int(x) for x in rs.integers(0, 2, 64)]
+    reset()
+    with swapped(swaps, stub):
+        secret = [eng.basepoint_mul(ks[0][0]), eng.basepoint_mul(7, ct=False),
+                  eng.commit(ks[0][1], ks[0][2], pc.B, pc.B_blinding),
+                  *eng.commit_batch(ks[0][:3], ks[0][3:6], pc.B,
+                                    pc.B_blinding),
+                  eng.msm_secret(ks[0], groups[0]),
+                  *eng.msm_batch(ks, groups, ct=True),
+                  *eng.bit_commit_batch([(ks[0][7], bits, pc.B_blinding,
+                                          gl[0], gl[1])])]
+    ct_path = counts()
+    public = [pc.B * ks[0][0], pc.B * 7, pc.commit(ks[0][1], ks[0][2]),
+              *[pc.commit(v, b) for v, b in zip(ks[0][:3], ks[0][3:6])],
+              *eng.msm_batch([ks[0]], [groups[0]]),
+              *eng.msm_batch(ks, groups),
+              *eng.msm_batch([[ks[0][7]] + bits + [(b - 1) % L for b in bits]],
+                             [[pc.B_blinding] + gl[0] + gl[1]])]
+    require(secret == public, "a constant-time route's point differs from "
+                              "the public route's")
+    require(ct_path[17] > 0 and ct_path[18] > 0 and ct_path[3] > 0
+            and all(ct_path[i] == 0 for i in (1, 2, 8, 12)),
+            f"the constant-time routes launched {ct_path}")
+    print(f"routes: basepoint_mul (both ct), commit, commit_batch (K17), "
+          f"msm_secret, msm_batch(ct=True), bit_commit_batch (K18, K4) "
+          f"with the bucket route, torch.sort, K2, K3, K5s and K9 raising: "
+          f"equal to the public route and the host formula; launches "
+          f"{ct_path}", flush=True)
+
+    # V's time a commit: one K17 launch and one fetch
+    walls = []
+    for i in range(21):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.commit(ks[0][i], ks[0][i + 21], pc.B, pc.B_blinding)
+        walls.append(time.perf_counter() - t)
+    walls.sort()
+    print(f"V a commit (engine.commit: K17, one fetch): wall "
+          f"{1e3 * walls[0]:.3f} / {1e3 * walls[10]:.3f} ms (min / median "
+          f"of 21) [{smi}]", flush=True)
+    return {"K17": res17, "K18": res18}, ct_path
+
+
+def keys_phase(smi, dev, bp32, pc, reset, counts):
+    """Phase 10e: keytree, PredicateTree, the taproot `call` transaction and
+    the multi-host MPC on the card against the committed keys and MPC
+    fixture (zkvm_tpu_torch/data/keys_mpc_seeded.bin, made by the JAX
+    package); -> the path's launch counts."""
+    from zkvm_tpu_torch import fixture
+    from zkvm_tpu_torch.crypto import Xprv
+    from zkvm_tpu_torch.kernels.engine import TorchEngine
+    from zkvm_tpu_torch.parallel import mpc_hosts
+    from zkvm_tpu_torch.proofs.errors import MPCError, VerificationError
+    from zkvm_tpu_torch.proofs.generators import BulletproofGens
+    from zkvm_tpu_torch.proofs.rangeproof import RangeProof
+    from zkvm_tpu_torch.proofs.transcript import ProofTranscript
+    from zkvm_tpu_torch.vm import Instruction, Tx, TxHeader, build_tx
+    from zkvm_tpu_torch.vm import verify_tx
+    from zkvm_tpu_torch.vm.predicate import PredicateTree
+
+    fx = fixture.load_keys_mpc()
+    eng = TorchEngine(dev)
+    reset()
+    t = time.perf_counter()
+    for k in fx.keytree:
+        def sel(tr, a=k.account):
+            tr.append_u64(b"account", a)
+        xprv = Xprv.random(k.seed)
+        xpub = xprv.to_xpub(eng)
+        child = xprv.derive_key(sel, eng)
+        require((xprv.scalar_key, xprv.dk, xpub.point) == (k.scalar, k.dk,
+                                                           k.point)
+                and (child.scalar_key, child.dk) == (k.child_scalar,
+                                                     k.child_dk)
+                and xpub.derive_key(sel, eng).point == k.child_point
+                and child.to_xpub(eng).point == k.child_point,
+                "a keytree derivation differs from the JAX package's")
+    for c in fx.predicates:
+        tree = PredicateTree(c.key_point, c.progs)
+        require(tree.adjustment_factor() == c.adjustment
+                and tree.predicate(eng).point == c.predicate
+                and [tree.call_proof(i).to_bytes()
+                     for i in range(len(c.progs))] == c.call_proofs,
+                "a PredicateTree differs from the JAX package's")
+    call = fx.call
+    c = fx.predicates[call.tree]
+    tree = PredicateTree(c.key_point, c.progs)
+    program = fixture.taproot_call_program(
+        Instruction, tree.predicate(eng).point, c.progs[call.leaf],
+        tree.call_proof(call.leaf).to_bytes(), call.payload)
+    call_bp = BulletproofGens(16)
+    tx, vtx = build_tx(program, TxHeader(*call.header), call_bp, engine=eng)
+    require((vtx.id, vtx.fee, tuple(e.encode() for e in vtx.log)) == (
+        call.txid, call.fee, call.log)
+        and tx.program == Tx.from_bytes(call.wire).program,
+        "the taproot call transaction differs from the JAX build_tx's")
+    require(verify_tx(Tx.from_bytes(tx.to_bytes()), call_bp,
+                      engine=eng).id == call.txid,
+            "verify_tx of the taproot call transaction")
+    print(f"keytree ({len(fx.keytree)} derivations) and PredicateTree "
+          f"({len(fx.predicates)} trees) equal to the JAX package's; the "
+          f"taproot call transaction built on the card: txid, fee, log and "
+          f"program equal to the JAX build_tx's, verify_tx accepts; "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+
+    m = fx.mpc
+    hosts, at = [], 0
+    for k in m.party_counts:
+        hosts.append((m.values[at:at + k], m.blindings[at:at + k]))
+        at += k
+    vals, blinds = [h[0] for h in hosts], [h[1] for h in hosts]
+    engines = [TorchEngine(dev) for _ in hosts]
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        proof, vcs = mpc_hosts.distributed_prove(
+            bp32, pc, m.label, vals, blinds, m.n, engines=engines)
+        walls.append(time.perf_counter() - t)
+        require(vcs == m.commitments, "distributed_prove's commitments "
+                                      "differ from the fixture's")
+        wire = bytearray(proof.to_bytes())
+        RangeProof.from_bytes(bytes(wire)).verify_multiple(
+            bp32, pc, ProofTranscript(m.label), vcs, m.n, engine=eng)
+    wire[4 * 32] ^= 1                                # t_x's low bit
+    try:
+        RangeProof.from_bytes(bytes(wire)).verify_multiple(
+            bp32, pc, ProofTranscript(m.label), vcs, m.n, engine=eng)
+        rejected = False
+    except VerificationError:
+        rejected = True
+    require(rejected, "the distributed proof with a flipped t_x bit was "
+                      "accepted")
+    try:
+        mpc_hosts.distributed_prove(
+            bp32, pc, m.label, vals, blinds, m.n, engines=engines,
+            corrupt={m.corrupt_host: fixture.corrupt_first_share(mpc_hosts)})
+        named = None
+    except MPCError as e:
+        named = e.bad_shares
+    require(named == m.bad_shares, f"the corrupted share was attributed to "
+                                   f"{named}, the reference to "
+                                   f"{m.bad_shares}")
+    path = counts()
+    require(path[17] > 0 and path[18] > 0,
+            f"the keys and MPC path skipped K17 or K18: {path}")
+    walls.sort()
+    print(f"distributed_prove, {len(hosts)} hosts x {m.party_counts[0]} "
+          f"parties, n = {m.n} (ThreadLocalTransport, a TorchEngine a "
+          f"host): commitments equal to the fixture's, verify_multiple "
+          f"accepts, a flipped t_x bit rejects; host {m.corrupt_host}'s "
+          f"corrupted share names parties {named}, as the reference; wall "
+          f"{walls[0]:.4f} / {walls[1]:.4f} s (min / median of 3); "
+          f"launches {path} [{smi}]", flush=True)
+    return path
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip smoke: no CUDA device", file=sys.stderr)
@@ -1023,8 +1451,9 @@ def main():
     from zkvm_tpu_torch import fixture
     from zkvm_tpu_torch import micro as micro_bench
     from zkvm_tpu_torch.convert import from_jax_limbs13
-    from zkvm_tpu_torch.kernels import (_build, combine, decompress, gather,
-                                        micro, msm, pointwise, sort)
+    from zkvm_tpu_torch.kernels import (_build, combine, decompress,
+                                        fixed_base, gather, micro, msm,
+                                        msm_ct, pointwise, sort)
     from zkvm_tpu_torch.kernels import batch_verify_device as bvd
     from zkvm_tpu_torch.kernels import field as F
     from zkvm_tpu_torch.kernels import scalarmod as sm
@@ -1252,29 +1681,7 @@ def main():
     # the scratch contract: K2's and K3's C entries refuse a scratch one
     # element shorter than their own constants need, and the wrappers raise
     # without launching (K11's and K12's in phase 3)
-    def short_scratch(cases):
-        """cases: (name, the msm scratch size helper, call, wrapper).  Each
-        call runs with its helper made one element short; each must raise
-        that the scratch is short, its wrapper counting no launch."""
-        refused = []
-        for name, attr, call, fn in cases:
-            real, before = getattr(msm, attr), fn.launches
-            setattr(msm, attr, lambda *a, real=real: real(*a) - 1)
-            try:
-                call()
-                torch.cuda.synchronize()
-            except RuntimeError as e:
-                if "scratch" in str(e) and fn.launches == before:
-                    refused.append(name)
-            finally:
-                setattr(msm, attr, real)
-        names = [c[0] for c in cases]
-        require(refused == names, f"a scratch one element short was not "
-                                  f"refused: {refused} of {names}")
-        print(f"{', '.join(names)} with a scratch one element short: "
-              f"refused, nothing launched", flush=True)
-
-    short_scratch([
+    short_scratch(msm, [
         ("K2", "_accumulate_scratch",
          lambda: msm.bucket_accumulate(keys, offsets, points, nbk, shift),
          msm.bucket_accumulate),
@@ -1567,7 +1974,7 @@ def main():
     keys12, offsets12, shift12 = msm.sort_keys(digits12, 2048)
     k11_k12("nb=1024 w=12", points, keys12, offsets12, shift12, 2048,
             msm.bucket_accumulate(keys12, offsets12, points, 2048, shift12))
-    short_scratch([
+    short_scratch(msm, [
         (k, "_level_scratch",
          lambda kern=kern, r=results[k]["rows"]: kern(keys, offsets, r, nbk,
                                                      shift), kern)
@@ -1587,7 +1994,8 @@ def main():
                sort.radix_sort, gather.gather_words,
                msm.bucket_accumulate_words, msm.bucket_accumulate_affine,
                msm.small_scan, micro.micro_mul, micro.micro_parts,
-               micro.micro_add_chain, micro.micro_add_chain_lanes]
+               micro.micro_add_chain, micro.micro_add_chain_lanes,
+               fixed_base.fixed_base_ct, msm_ct.msm_ct]
 
     def reset():
         for k in kernels:
@@ -1833,7 +2241,8 @@ def main():
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    require(counts() == [0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0],
+    once = [int(k in (msm.bucket_fold, msm.small_scan)) for k in kernels]
+    require(counts() == once,
             f"window_totals_small launched {counts()}, not K5s and K3 once")
     child = subprocess.run([sys.executable, os.path.abspath(__file__),
                             "--launch-check"], capture_output=True, text=True,
@@ -2422,11 +2831,20 @@ def main():
 
     # --------------------------------------------------------- phase 10c
     r1cs_prove_path = r1cs_prove_phase(smi, dev, r1cs_bp, pc, reset, counts)
+    mark("10c (R1CS prove path)")
+
+    # --------------------------------------------------------- phase 10d
+    ct_results, ct_path = ct_phase(smi, dev, r1cs_bp, pc, reset, counts)
+    results.update(ct_results)
+    mark("10d (constant-time routes, K17 and K18)")
+
+    # --------------------------------------------------------- phase 10e
+    keys_path = keys_phase(smi, dev, bp32, pc, reset, counts)
     launches = [sum(c) for c in zip(range_path, r1cs_path, entry, micro_path,
                                     engine_path, tx_path, prove_path,
-                                    r1cs_prove_path)]
+                                    r1cs_prove_path, ct_path, keys_path)]
     require(all(c > 0 for c in launches), f"a kernel never launched: {launches}")
-    mark("10c (R1CS prove path)")
+    mark("10e (keytree, taproot, multi-host MPC)")
 
     # ---------------------------------------------------------- phase 11
     table = [  # key, name, source, replaced TPU kernel(s)
@@ -2469,6 +2887,12 @@ def main():
          "bench/pallas_micro.py:290 (_make_add_chain_planes)"),
         ("K16", "micro_add_chain_lanes", "field_micro.cu",
          "bench/pallas_micro.py:338 (_make_add_chain)"),
+        ("K17", "fixed_base_ct", "fixed_base.cu",
+         "zkvm_tpu/native/edwards255.cpp:462-514 (ed_fixed_init, "
+         "ed_fixed_mul, ed_fixed_commit_batch; no Pallas kernel)"),
+        ("K18", "msm_ct", "msm_ct.cu",
+         "zkvm_tpu/native/edwards255.cpp:287 (ed_msm with ct = 1) and "
+         ":413-460 (ed_bit_commit); no Pallas kernel"),
     ]
     line = {"kernels": [
         {"name": name, "route": "cuda",

@@ -17,9 +17,11 @@ import zkvm_tpu_torch
 from zkvm_tpu_torch import fixture, native
 from zkvm_tpu_torch import micro as micro_bench
 from zkvm_tpu_torch.crypto import musig, starsig
-from zkvm_tpu_torch.kernels import (combine, decompress, gather, micro, msm,
-                                    pointwise, sort)
+from zkvm_tpu_torch.crypto import Xprv
+from zkvm_tpu_torch.kernels import (combine, decompress, fixed_base, gather,
+                                    micro, msm, msm_ct, pointwise, sort)
 from zkvm_tpu_torch.kernels.engine import TorchEngine
+from zkvm_tpu_torch.parallel.mpc_hosts import distributed_prove
 from zkvm_tpu_torch.parallel.tx_batch import fused_verify_tx_batch
 from zkvm_tpu_torch.proofs.engine import get_engine
 from zkvm_tpu_torch.proofs.generators import BulletproofGens, PedersenGens
@@ -29,6 +31,7 @@ from zkvm_tpu_torch.proofs.r1cs import Prover, R1CSProof
 from zkvm_tpu_torch.proofs.rangeproof import RangeProof, batch_verify
 from zkvm_tpu_torch.proofs.transcript import ProofTranscript
 from zkvm_tpu_torch.vm import Instruction, Tx, TxHeader, build_tx, verify_tx
+from zkvm_tpu_torch.vm.predicate import PredicateTree
 
 ROOT = Path(zkvm_tpu_torch.__file__).resolve().parent
 # the JAX package, and its micro-benchmarks (bench/pallas_micro.py)
@@ -131,6 +134,13 @@ def test_engine_entry_points_without_device_need_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         build_tx([Instruction("push", data=(10).to_bytes(8, "little")),
                   Instruction("fee")], TxHeader(), bp)
+    # key derivation, taproot predicates and the multi-host MPC
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Xprv.random(bytes(64)).to_xpub()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PredicateTree(bytes(32), [b"leaf"]).predicate()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        distributed_prove(bp, pc, b"mpc", [[5]], [[7]], n)
 
 
 def test_kernel_wrappers_refuse_non_cuda_devices(monkeypatch, tmp_path):
@@ -185,6 +195,15 @@ def test_kernel_wrappers_refuse_non_cuda_devices(monkeypatch, tmp_path):
     with pytest.raises(ValueError, match="CUDA"):
         msm.window_totals_small(pts, torch.zeros((64, 32), dtype=torch.int32,
                                                  device="meta"), 8)
+    digits = torch.empty((64, 64), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        fixed_base.table(pts[:, :, :1])
+    with pytest.raises(ValueError, match="CUDA"):
+        fixed_base.fixed_base_ct(torch.empty((64, 8, 4, 10),
+                                             dtype=torch.int32,
+                                             device="meta"), digits)
+    with pytest.raises(ValueError, match="CUDA"):
+        msm_ct.msm_ct(pts, digits, [64])
     keys = torch.empty((2, 64), dtype=torch.int64, device="meta")
     offsets = torch.empty((2, 129), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="CUDA"):

@@ -1,11 +1,12 @@
-"""K2's and K3's scratch is sized in kernels/msm.py from copies of the
-kernels' compile-time constants: the copies must equal the .cu sources'
-(the C entries also refuse a scratch too short for their own)."""
+"""K2's and K3's scratch is sized in kernels/msm.py, K18's in
+kernels/msm_ct.py, from copies of the kernels' compile-time constants:
+the copies must equal the .cu sources' (the C entries also refuse a
+scratch too short for their own)."""
 
 import re
 from pathlib import Path
 
-from zkvm_tpu_torch.kernels import msm
+from zkvm_tpu_torch.kernels import msm, msm_ct
 
 CSRC = Path(msm.__file__).resolve().parent / "csrc"
 
@@ -22,3 +23,5 @@ def test_scratch_constants_match_the_kernels():
                                                msm.ACCUMULATE_CHUNK1)
     assert (fold["kRun"], fold["kMaxGroups"]) == (msm.FOLD_RUN,
                                                   msm.FOLD_GROUPS)
+    ct = _constants("msm_ct.cu")
+    assert (ct["kChunk"], ct["kWindows"]) == (msm_ct.CHUNK, msm_ct.WINDOWS)

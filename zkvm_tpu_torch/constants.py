@@ -70,3 +70,4 @@ LABEL_ZKVM_CONTRACTID = b"ZkVM.contractid"
 # starsig / musig (slingshot/{starsig,musig})
 LABEL_STARSIG = b"Starsig.v1"
 LABEL_MUSIG = b"Musig.aggregated-key"
+LABEL_KEYTREE = b"Keytree.derivation"

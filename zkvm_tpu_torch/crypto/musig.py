@@ -7,11 +7,13 @@ error attribution.  Aggregated signatures verify exactly like starsig
 signatures under the aggregated key.
 
 The verifier's Multikey.aggregated_key is one TorchEngine.msm.  The
-signers' group operations are msm_batch calls on their engine (the card's
-unless the caller passes another): each nonce R_i = r_i·B, the sum of the
-R_i and the aggregated key together (unit scalars over the R_i, the
-factors over the X_i), and the dealer's share checks s_i·B - R_i -
-c·a_i·X_i, one group each, tested against the identity after the fetch.
+signers' group operations run on their engine (the card's unless the
+caller passes another): each nonce R_i = r_i·B (basepoint_mul, K17 on the
+card, constant-time in r_i), and as msm_batch calls over public scalars
+the sum of the R_i and the aggregated key together (unit scalars over the
+R_i, the factors over the X_i), and the dealer's share checks s_i·B - R_i
+- c·a_i·X_i, one group each, tested against the identity after the
+fetch.
 """
 
 from __future__ import annotations

@@ -9,8 +9,8 @@ verify_batch}, VerificationKey.  Protocol:
 The transcript carries the message context (callers append the message or
 txid before signing), with the starsig domain label prefixed.  The
 signer's k·B (the key, the nonce) is Engine.basepoint_mul on the engine,
-the card's unless the caller passes another: variable-time in the secret
-scalar there (README, "Proving").
+the card's unless the caller passes another: the fixed-base kernel K17
+there, constant-time in the secret scalar (README, "Proving").
 """
 
 from __future__ import annotations

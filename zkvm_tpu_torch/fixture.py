@@ -42,6 +42,13 @@ wire, u32 count and that many u32 params, u64 values, 32-byte scalars and
 32-byte points, the length-prefixed txid, u64 fee, u32 count and that
 many length-prefixed log entries (R1CSProveCase says what each field
 holds for each kind).
+
+Keys and MPC fixture (little-endian; tests/test_torch_keys_mpc_fixture.py
+makes it with the JAX package): magic b"ZKKEYS01", then the keytree
+cases, the PredicateTree cases, the taproot `call` transaction and the
+multi-host MPC case, each field as KeysMpcFixture's dataclasses list
+them: ints as u64, scalars as 32 bytes, byte strings and lists
+length-prefixed by a u32.
 """
 
 from __future__ import annotations
@@ -70,6 +77,8 @@ PROVE_KINDS = ("range", "ipp")
 PROVE_R1CS = DATA / "prove_r1cs_seeded.bin"
 PROVE_R1CS_MAGIC = b"ZKPROVR1"
 PROVE_R1CS_KINDS = ("cloak", "range", "issue", "payment")
+KEYS_MPC = DATA / "keys_mpc_seeded.bin"
+KEYS_MPC_MAGIC = b"ZKKEYS01"
 
 
 def wire_len(n: int, m: int) -> int:
@@ -525,3 +534,198 @@ def tx_programs(cases: list[R1CSProveCase]):
                     c.points[1], c.params[0], tok.flavor))
             out.append((prog, Tx.from_bytes(c.wire).header, {pred: key}))
     return out
+
+
+# --------------------------------------------------- keys, taproot, MPC
+@dataclass
+class KeytreeCase:
+    """Xprv.random(seed), its child under append_u64(b"account",
+    account): the JAX package's xprv scalar and dk, xpub point, the
+    child's scalar and dk (private derivation) and point (public
+    derivation)."""
+    seed: bytes
+    account: int
+    scalar: int
+    dk: bytes
+    point: bytes
+    child_scalar: int
+    child_dk: bytes
+    child_point: bytes
+
+
+@dataclass
+class PredicateCase:
+    """PredicateTree(key_point, progs): its adjustment factor, predicate
+    point and each leaf's CallProof.to_bytes()."""
+    key_point: bytes
+    progs: list[bytes]
+    adjustment: int
+    predicate: bytes
+    call_proofs: list[bytes]
+
+
+@dataclass
+class CallTxCase:
+    """The taproot `call` transaction: leaf `leaf` of predicate case
+    `tree` opened with `payload` under header (version, mintime,
+    maxtime), as taproot_call_program lays it; the JAX build_tx's wire,
+    txid, fee and encoded log entries."""
+    tree: int
+    leaf: int
+    payload: bytes
+    header: tuple[int, int, int]
+    wire: bytes
+    txid: bytes
+    fee: int
+    log: tuple[bytes, ...]
+
+
+@dataclass
+class MpcCase:
+    """distributed_prove over len(party_counts) hosts, the values and
+    blindings host-major, n bits each; the JAX package's value
+    commitments, and the global party positions its dealer names when
+    host corrupt_host sends its shares through corrupt_first_share."""
+    label: bytes
+    n: int
+    party_counts: list[int]
+    values: list[int]
+    blindings: list[int]
+    commitments: list[bytes]
+    corrupt_host: int
+    bad_shares: list[int]
+
+
+@dataclass
+class KeysMpcFixture:
+    keytree: list[KeytreeCase]
+    predicates: list[PredicateCase]
+    call: CallTxCase
+    mpc: MpcCase
+
+
+def taproot_call_program(instruction, predicate: bytes, leaf: bytes,
+                         call_proof: bytes, payload: bytes) -> list:
+    """The `call` transaction's program in either package's Instruction:
+    a contract holding `payload` locked under `predicate`, opened by
+    `leaf` with its call proof."""
+    return [
+        instruction("push", data=payload),
+        instruction("push", data=predicate),
+        instruction("contract", k=1),
+        instruction("program", data=leaf),
+        instruction("push", data=call_proof),
+        instruction("call"),
+    ]
+
+
+def corrupt_first_share(mpc_hosts):
+    """A payload mutator for distributed_prove's corrupt= (either
+    package's mpc_hosts): the host's first share's t_x + 1."""
+    from .constants import L
+
+    def fn(payload: bytes) -> bytes:
+        shares = mpc_hosts.deserialize_shares(payload)
+        shares[0].t_x = (shares[0].t_x + 1) % L
+        return mpc_hosts.serialize_shares(shares)
+    return fn
+
+
+def _put_list(blob: bytearray, items, put) -> None:
+    blob += struct.pack("<I", len(items))
+    for x in items:
+        put(x)
+
+
+def dump_keys_mpc(path, fx: KeysMpcFixture) -> None:
+    blob = bytearray(KEYS_MPC_MAGIC)
+
+    def u64(x):
+        blob.extend(struct.pack("<Q", x))
+
+    def sc(x):
+        blob.extend(int(x).to_bytes(32, "little"))
+
+    def b(x):
+        blob.extend(_blob(x))
+
+    def ints(xs):
+        _put_list(blob, xs, u64)
+
+    blob += struct.pack("<I", len(fx.keytree))
+    for k in fx.keytree:
+        b(k.seed)
+        u64(k.account)
+        sc(k.scalar)
+        b(k.dk)
+        b(k.point)
+        sc(k.child_scalar)
+        b(k.child_dk)
+        b(k.child_point)
+    blob += struct.pack("<I", len(fx.predicates))
+    for c in fx.predicates:
+        b(c.key_point)
+        _put_list(blob, c.progs, b)
+        sc(c.adjustment)
+        b(c.predicate)
+        _put_list(blob, c.call_proofs, b)
+    c = fx.call
+    ints([c.tree, c.leaf, *c.header])
+    b(c.payload)
+    b(c.wire)
+    b(c.txid)
+    u64(c.fee)
+    _put_list(blob, c.log, b)
+    m = fx.mpc
+    b(m.label)
+    ints([m.n, m.corrupt_host])
+    ints(m.party_counts)
+    ints(m.values)
+    _put_list(blob, m.blindings, sc)
+    _put_list(blob, m.commitments, b)
+    ints(m.bad_shares)
+    Path(path).write_bytes(bytes(blob))
+
+
+def load_keys_mpc(path=KEYS_MPC) -> KeysMpcFixture:
+    data = Path(path).read_bytes()
+    if data[:8] != KEYS_MPC_MAGIC:
+        raise ValueError("not a keys and MPC fixture")
+    off = 8
+
+    def take(size: int) -> bytes:
+        nonlocal off
+        if off + size > len(data):
+            raise ValueError("truncated keys and MPC fixture")
+        off += size
+        return data[off - size: off]
+
+    def u32() -> int:
+        return struct.unpack("<I", take(4))[0]
+
+    def u64() -> int:
+        return struct.unpack("<Q", take(8))[0]
+
+    def sc() -> int:
+        return int.from_bytes(take(32), "little")
+
+    def b() -> bytes:
+        return take(u32())
+
+    def many(get) -> list:
+        return [get() for _ in range(u32())]
+
+    keytree = many(lambda: KeytreeCase(b(), u64(), sc(), b(), b(), sc(),
+                                       b(), b()))
+    predicates = many(lambda: PredicateCase(b(), many(b), sc(), b(),
+                                            many(b)))
+    tree, leaf, *header = many(u64)
+    call = CallTxCase(tree, leaf, b(), tuple(header), b(), b(), u64(),
+                      tuple(many(b)))
+    label = b()
+    n, corrupt_host = many(u64)
+    mpc = MpcCase(label, n, many(u64), many(u64), many(sc), many(b),
+                  corrupt_host, many(u64))
+    if off != len(data):
+        raise ValueError("trailing bytes in a keys and MPC fixture")
+    return KeysMpcFixture(keytree, predicates, call, mpc)

@@ -1,13 +1,14 @@
 """Builds the CUDA kernels at first use and binds them with ctypes.
 
 Each source (csrc/<source>.cu, which includes csrc/field25519.cuh and, for
-the lane-parallel kernels, csrc/lanes.cuh) compiles with its own nvcc
-process into a shared library with a plain C interface; build_all starts
-them all together.  A kernel's source is csrc/<name>.cu unless SOURCES
-names another: K11 and K12 are entries of K2's library, K13-K16 of
-csrc/field_micro.cu.  Sources include no PyTorch header, so a build
-takes seconds, not the minutes a torch.utils.cpp_extension build of the
-same code takes.  Libraries land
+the lane-parallel kernels, csrc/lanes.cuh; K17 and K18 also
+csrc/ct_select.cuh) compiles with its own nvcc process into a shared
+library with a plain C interface; build_all starts them all together.  A
+kernel's source is csrc/<name>.cu unless SOURCES names another: K11 and
+K12 are entries of K2's library, K13-K16 of csrc/field_micro.cu, and
+K17's table set-up of csrc/fixed_base.cu.  Sources include no PyTorch
+header, so a build takes seconds, not the minutes a
+torch.utils.cpp_extension build of the same code takes.  Libraries land
 in kernels/build/ (ignored by git), named by a hash of their sources and
 flags, so an edited source is rebuilt and a built one is reused.
 
@@ -26,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -65,6 +67,9 @@ SIGNATURES = {
     "micro_add_chain": ("zkvm_micro_add_chain", [_P, _P, _P, _L, _I, _P]),
     "micro_add_chain_lanes": ("zkvm_micro_add_chain_lanes",
                               [_P, _P, _P, _L, _I, _P]),
+    "fixed_base": ("zkvm_fixed_base_ct", [_P, _P, _P, _P, _P, _L, _I, _P]),
+    "fixed_base_table": ("zkvm_fixed_base_table", [_P, _P, _P]),
+    "msm_ct": ("zkvm_msm_ct", [_P, _P, _P, _P, _I, _P, _L, _P, _L, _P]),
 }
 
 # kernels whose entry point lives in another kernel's source
@@ -72,9 +77,15 @@ SOURCES = {"bucket_accumulate_words": "bucket_accumulate",
            "bucket_accumulate_affine": "bucket_accumulate",
            "micro_mul": "field_micro", "micro_parts": "field_micro",
            "micro_add_chain": "field_micro",
-           "micro_add_chain_lanes": "field_micro"}
+           "micro_add_chain_lanes": "field_micro",
+           "fixed_base_table": "fixed_base"}
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}
+# kernel() checks, builds and loads under _LOAD_LOCK, and count() adds to a
+# wrapper's count under _COUNT_LOCK: distributed_prove's host threads reach
+# the same kernels together
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def source(name: str) -> str:
@@ -117,7 +128,7 @@ def build_all(names=None) -> dict[str, float]:
         out = lib_path(name)
         if out.exists():
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [nvcc(), *FLAGS, "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -140,16 +151,27 @@ def build_all(names=None) -> dict[str, float]:
 def kernel(name: str):
     """The bound C entry point of library `name`, built if missing."""
     fn = _loaded.get(name)
-    if fn is None:
-        path = lib_path(name)
-        if not path.exists():
-            build_all([name])
-        symbol, argtypes = SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(str(path)), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _loaded[name] = fn
+    if fn is not None:
+        return fn
+    with _LOAD_LOCK:
+        fn = _loaded.get(name)
+        if fn is None:
+            path = lib_path(name)
+            if not path.exists():
+                build_all([name])
+            symbol, argtypes = SIGNATURES[name]
+            fn = getattr(ctypes.CDLL(str(path)), symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _loaded[name] = fn
     return fn
+
+
+def count(wrapper) -> None:
+    """Add one to `wrapper.launches`: called by a wrapper where it has
+    launched its kernel, and nowhere else."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def launch(name: str, *args) -> None:

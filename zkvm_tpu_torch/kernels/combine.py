@@ -70,7 +70,7 @@ def _launch(totals: torch.Tensor, wbits: int):
                          device=totals.device)
     out = torch.empty((nchecks,), dtype=torch.int32, device=totals.device)
     _build.launch("horner_check", totals, folded, out, nchecks, nw, wbits)
-    horner_check.launches += 1
+    _build.count(horner_check)
     return folded, out
 
 

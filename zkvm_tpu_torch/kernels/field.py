@@ -59,20 +59,24 @@ def carry(h: torch.Tensor) -> torch.Tensor:
     return carry_pass(carry_pass(h))
 
 
+# the row of [19 g, g, 19 g', g'] (g' = g with its odd limbs doubled)
+# that column k takes from limb i of f: g_(k-i), from g' where i is odd,
+# 19 times where k - i wraps
+_MUL_ROWS = torch.tensor([[(2 * NL if i % 2 else 0) + NL - i + k
+                           for k in range(NL)] for i in range(NL)])
+
+
 def mul_columns(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """mul's ten int64 columns before its carry passes (the CUDA header's
     fe_mul_cols): column k = Σ_i f_i g_(k-i) (× 19 where k - i wraps, × 2
-    where i and k - i are both odd), from views of [19 g, g] and of the
-    same with g's odd limbs doubled: rows 10 - i .. 19 - i are g_(k-i) for
-    k = 0..9."""
+    where i and k - i are both odd), gathered from [19 g, g] and the same
+    with g's odd limbs doubled as one (10, 10, ...) table of factors and
+    summed over i.  The sums are exact int64 (the audit above bounds every
+    partial sum), so the order of the terms does not change a limb."""
     f, g = torch.broadcast_tensors(f, g)
-    odd = _col(_ODD, g)
-    ext = torch.cat([19 * g, g])
-    ext_odd = torch.cat([19 * (g * odd), g * odd])
-    h = f[0] * ext[NL:]
-    for i in range(1, NL):
-        h = h + f[i] * (ext_odd if i % 2 else ext)[NL - i:2 * NL - i]
-    return h
+    go = g * _col(_ODD, g)
+    ext = torch.cat([19 * g, g, 19 * go, go])
+    return (f.unsqueeze(1) * ext[_MUL_ROWS.to(g.device)]).sum(0)
 
 
 def mul(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

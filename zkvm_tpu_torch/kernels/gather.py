@@ -36,7 +36,7 @@ def gather_words(src: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     _build.check_cuda(perm, torch.int64, (None, None), "gather_words perm")
     out = torch.empty(perm.shape + (S,), dtype=torch.int32, device=src.device)
     _build.launch("gather_words", src, perm, out, perm.numel(), S // 4)
-    gather_words.launches += 1
+    _build.count(gather_words)
     return out
 
 

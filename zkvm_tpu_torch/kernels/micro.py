@@ -79,7 +79,7 @@ def micro_mul(a: torch.Tensor, b: torch.Tensor, depth: int = 1,
     B = _fe_pair(a, b, "micro_mul")
     out = torch.empty_like(a)
     _build.launch("micro_mul", a, b, out, B, depth, MUL_FORMS.index(form))
-    micro_mul.launches += 1
+    _build.count(micro_mul)
     return out
 
 
@@ -123,7 +123,7 @@ def micro_parts(a: torch.Tensor, b: torch.Tensor, variant: str = "chain",
     out = torch.empty((F.NL, B), device=a.device,
                       dtype=torch.int64 if variant == "prod" else torch.int32)
     _build.launch("micro_parts", a, b, out, B, depth, PARTS.index(variant))
-    micro_parts.launches += 1
+    _build.count(micro_parts)
     return out
 
 
@@ -148,7 +148,7 @@ def micro_add_chain(p: torch.Tensor, q: torch.Tensor,
     B = _point_pair(p, q, "micro_add_chain")
     out = torch.empty_like(p)
     _build.launch("micro_add_chain", p, q, out, B, depth)
-    micro_add_chain.launches += 1
+    _build.count(micro_add_chain)
     return out
 
 
@@ -173,7 +173,7 @@ def micro_add_chain_lanes(p: torch.Tensor, q: torch.Tensor,
     B = _point_pair(p, q, "micro_add_chain_lanes")
     out = torch.empty_like(p)
     _build.launch("micro_add_chain_lanes", p, q, out, B, depth)
-    micro_add_chain_lanes.launches += 1
+    _build.count(micro_add_chain_lanes)
     return out
 
 

@@ -358,7 +358,7 @@ def _launch_accumulate(fn, name, keys, offsets, records, shape, scratch_len,
                           device=keys.device)
     _build.launch(name, keys, offsets, records, out, scratch, scratch.numel(),
                   n, nw, nb, shift)
-    fn.launches += 1
+    _build.count(fn)
     return out
 
 
@@ -500,7 +500,7 @@ def bucket_fold(buckets, nw: int, nb: int):
                        device=buckets.device)
     out = torch.empty((4, F.NL, nw), dtype=torch.int32, device=buckets.device)
     _build.launch("bucket_fold", buckets, part, part.numel(), out, nw, nb)
-    bucket_fold.launches += 1
+    _build.count(bucket_fold)
     return out
 
 
@@ -660,7 +660,7 @@ def small_scan(keys, points, nb: int, shift: int):
     out = torch.empty((4, F.NL, nw * nb), dtype=torch.int32,
                       device=keys.device)
     _build.launch("small_scan", keys, points, out, n, nw, nb, shift)
-    small_scan.launches += 1
+    _build.count(small_scan)
     return out
 
 

@@ -58,7 +58,7 @@ def seg_combine(p: torch.Tensor, q: torch.Tensor,
     _build.check_cuda(flags, torch.int32, (B,), "seg_combine flags")
     out = torch.empty_like(p)
     _build.launch("seg_combine", p, q, flags, out, B)
-    seg_combine.launches += 1
+    _build.count(seg_combine)
     return out
 
 
@@ -79,7 +79,7 @@ def point_add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     _check_points(q, B, "point_add q")
     out = torch.empty_like(p)
     _build.launch("point_add", p, q, out, B)
-    point_add.launches += 1
+    _build.count(point_add)
     return out
 
 
@@ -101,7 +101,7 @@ def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _check_fe(b, B, "mul b")
     out = torch.empty_like(a)
     _build.launch("fe_mul", a, b, out, B)
-    mul.launches += 1
+    _build.count(mul)
     return out
 
 
@@ -123,7 +123,7 @@ def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _check_fe(b, B, "add b")
     out = torch.empty_like(a)
     _build.launch("fe_add", a, b, out, B)
-    add.launches += 1
+    _build.count(add)
     return out
 
 

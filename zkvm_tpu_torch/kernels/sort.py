@@ -68,7 +68,7 @@ def radix_sort(keys: torch.Tensor, lo_bit: int = 0,
                        device=keys.device)
     _build.launch("radix_sort", keys, out, tmp, hist, R, n, TILE, lo_bit,
                   hi_bit)
-    radix_sort.launches += 1
+    _build.count(radix_sort)
     return out
 
 

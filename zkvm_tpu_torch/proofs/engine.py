@@ -13,7 +13,9 @@ package's host Engine does without its native library (basepoint_mul,
 the signers' and the R1CS prover's k·B, as one msm_batch group), and
 ipp_create as InnerProductProof.create_plain: the plain definitions that
 the tests run over the oracle.  TorchEngine runs all of them on its
-device.
+device, the calls on secret scalars constant-time there: basepoint_mul,
+commit and commit_batch on the fixed-base kernel K17, msm_secret,
+msm_batch(ct=True) and bit_commit_batch on the constant-time MSM K18.
 """
 
 from __future__ import annotations
@@ -43,30 +45,35 @@ class Engine:
         return self.msm(scalars, points).is_identity()
 
     def msm_secret(self, scalars, points) -> RistrettoPoint:
-        """An MSM over secret scalars (the prover's commitments)."""
+        """An MSM over secret scalars (the prover's commitments): an engine
+        on a device runs it constant-time in the scalars."""
         return self.msm(scalars, points)
 
     def msm_batch(self, scalars_groups, points_groups,
                   ct: bool = False) -> list[RistrettoPoint]:
-        """Independent MSMs, one a group; ct marks secret scalars."""
+        """Independent MSMs, one a group; ct marks secret scalars, which an
+        engine on a device keeps constant-time (msm_secret)."""
         f = self.msm_secret if ct else self.msm
         return [f(s, p) for s, p in
                 zip(scalars_groups, points_groups, strict=True)]
 
     def basepoint_mul(self, scalar: int, ct: bool = True) -> RistrettoPoint:
         """scalar·B for the Ristretto basepoint B, one msm_batch group; ct
-        marks a secret scalar (a key, a nonce).  The JAX package's
-        fixed-base native table is not copied."""
+        marks a secret scalar (a key, a nonce).  TorchEngine takes B's
+        fixed-base table instead (K17), for either ct, as the JAX
+        package's native table serves both."""
         return self.msm_batch([[scalar]], [[BASEPOINT]], ct=ct)[0]
 
     def commit(self, value: int, blinding: int, B: RistrettoPoint,
                B_blinding: RistrettoPoint) -> RistrettoPoint:
-        """The Pedersen commitment value·B + blinding·B_blinding."""
+        """The Pedersen commitment value·B + blinding·B_blinding, secret in
+        both scalars."""
         return self.commit_batch([value], [blinding], B, B_blinding)[0]
 
     def commit_batch(self, values, blindings, B: RistrettoPoint,
                      B_blinding: RistrettoPoint) -> list[RistrettoPoint]:
-        """[v_i·B + b_i·B_blinding], one msm_batch."""
+        """[v_i·B + b_i·B_blinding], one msm_batch of secret scalars
+        (TorchEngine: one K17 launch over both bases' tables)."""
         groups = [[v, b] for v, b in zip(values, blindings, strict=True)]
         return self.msm_batch(groups, [[B, B_blinding]] * len(groups),
                               ct=True)

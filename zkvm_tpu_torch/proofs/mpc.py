@@ -13,7 +13,7 @@ RangeProof.prove_multiple runs every party locally.
 Every group operation goes through the engine (a Party's and a Dealer's
 engine=, else the default engine, on the card): the commitments, the
 dealer's sums of the parties' points, the IPP base w·B, the share audits
-and the inner-product argument.  The witness
+(every share's in one call) and the inner-product argument.  The witness
 RNG draws in the reference's order: a_blinding, s_blinding, s_L, s_R at
 assign_position (bit_commitment_parts), t_1 and t_2 blindings at
 apply_challenge (poly_commitment_parts); any other order changes every
@@ -281,21 +281,30 @@ class Dealer:
 
     def receive_shares(self, proof_shares: list[ProofShare]):
         """Audit every share, naming the parties whose shares fail
-        (upstream receive_shares with ProofShareVerifier)."""
+        (upstream receive_shares with ProofShareVerifier); every share's
+        four sums in one engine call."""
         if len(proof_shares) != self.m:
             raise MPCError("wrong number of proof shares")
-        bad = [j for j, ps in enumerate(proof_shares)
-               if not self._audit_share(j, ps)]
+        scalars, points = [], []
+        for j, ps in enumerate(proof_shares):
+            s, p = self._audit_groups(j, ps)
+            scalars += s
+            points += p
+        sums = self.engine.msm_batch(scalars, points)
+        bad = [j for j in range(self.m)
+               if not (sums[4 * j] == sums[4 * j + 1]
+                       and sums[4 * j + 2] == sums[4 * j + 3])]
         if bad:
             raise MPCError("malformed proof shares", bad_shares=bad)
         return self._assemble(proof_shares)
 
-    def _audit_share(self, j: int, ps: ProofShare) -> bool:
-        """Check share j against its own commitments (upstream audit_share):
+    def _audit_groups(self, j: int, ps: ProofShare):
+        """Share j's check against its own commitments (upstream
+        audit_share), as four MSM groups (scalars, points), the two sides
+        of each of:
           t_x B + t_x_blinding B~ == z^2 z^j V_j + delta_j B + x T_1 + x^2 T_2
           A_j + x S_j == e_blinding B~ + <l + z, G_j> + <y^-i (r - z^2 z^j
-                         2^i) - z, H_j>
-        both sides of both in one engine call."""
+                         2^i) - z, H_j>"""
         n = self.n
         y, z = self.bit_challenge.y, self.bit_challenge.z
         x = self.poly_challenge.x
@@ -317,13 +326,11 @@ class Dealer:
         g_scalars = [(li + z) % L for li in ps.l_vec]
         h_scalars = [(yi * ((ri - zz * offset_z % L * e2) % L) - z) % L
                      for yi, ri, e2 in zip(yinv_pows, ps.r_vec, powers(2, n))]
-        lhs, rhs, lhs2, rhs2 = self.engine.msm_batch(
-            [[ps.t_x, ps.t_x_blinding],
-             [zz * offset_z % L, delta_j, x, x * x % L],
-             [1, x],
-             [ps.e_blinding] + g_scalars + h_scalars],
-            [[pcg.B, pcg.B_blinding],
-             [V_j, pcg.B, pc.T_1_j, pc.T_2_j],
-             [bc.A_j, bc.S_j],
-             [pcg.B_blinding] + gens.G(n) + gens.H(n)])
-        return lhs == rhs and lhs2 == rhs2
+        return ([[ps.t_x, ps.t_x_blinding],
+                 [zz * offset_z % L, delta_j, x, x * x % L],
+                 [1, x],
+                 [ps.e_blinding] + g_scalars + h_scalars],
+                [[pcg.B, pcg.B_blinding],
+                 [V_j, pcg.B, pc.T_1_j, pc.T_2_j],
+                 [bc.A_j, bc.S_j],
+                 [pcg.B_blinding] + gens.G(n) + gens.H(n)])

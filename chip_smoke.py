@@ -161,14 +161,17 @@
 10d. holds the constant-time kernels against their plain versions bit for
    bit: K17 fixed_base_ct's tables of B and B_blinding (built on the card)
    and its batches of 1, 4, 512 (the 2^15 circuit's V) and 4,096
-   commitments, with one and two bases; K18 msm_ct on groups of 1, 2,
-   129 x 2 (m = 1's A and S), 129 x 32 (m = 32's bit commitments) and the
-   2^15 circuit's phases (65,537 + 32,769 + 65,537 points), scalars 0,
-   ℓ - 1 and 2^64 - 1 among random ones; K18 + K4 equal to the bucket route
-   as points; K18 refusing a scratch one element short; times both
-   (events, min and median of 5, and the profiler's kernel time, min and
-   median of 3 traces) on all-zero, all ℓ - 1 and random scalars and
-   prints the spread; then, with every launch count set to 0, runs
+   commitments, with one and two bases;
+   K18 msm_ct on groups of 1, 2, 129 x 2 (m = 1's A and S), 129 x 32
+   (m = 32's bit commitments) and the 2^15 circuit's phases (65,537 +
+   32,769 + 65,537 points), scalars 0, ℓ - 1 and 2^64 - 1 among random
+   ones; K18 + K4 equal to the bucket route as points; K18 refusing a
+   scratch one element short; times K17 at one output with one base
+   (basepoint_mul) and with two (an R1CS V), 512 and 4,096 commitments,
+   and K18 at 1, 2, 129 x 32 points and the 2^15 phases (events, min and
+   median of 5, and the profiler's kernel time, min and median of 3
+   traces) on all-zero, all ℓ - 1 and random scalars and prints the
+   spreads and bounds; then, with every launch count set to 0, runs
    basepoint_mul, commit, commit_batch, msm_secret, msm_batch(ct=True) and
    bit_commit_batch on TorchEngine with msm.window_totals, torch.sort and
    the K2, K3, K5s and K9 wrappers raising, equal to the public route and
@@ -1067,29 +1070,30 @@ def r1cs_prove_phase(smi, dev, r1cs_bp, pc, reset, counts):
     return path
 
 
-def ct_phase(smi, dev, r1cs_bp, pc, reset, counts):
-    """Phase 10d: K17 fixed_base_ct and K18 msm_ct on the card, the routes
-    of every call on secret scalars; -> (their results for the kernels
-    line, the launch counts of the route check's engine calls)."""
-    from zkvm_tpu_torch.constants import L
-    from zkvm_tpu_torch.kernels import engine as engine_mod
-    from zkvm_tpu_torch.kernels import fixed_base as fb
-    from zkvm_tpu_torch.kernels import msm, msm_ct, sort
-    from zkvm_tpu_torch.kernels import scalarmod as sm
-    from zkvm_tpu_torch.kernels.combine import horner_fold
-    from zkvm_tpu_torch.kernels.engine import TorchEngine, _point_words
-    from zkvm_tpu_torch.kernels.words import (scalar_words, to_device,
-                                              words_to_points)
+CT_SETS = ("zero", "max", "random")
+# K17's timed shapes: (name, outputs, bases); one output with one base is
+# every basepoint_mul, with two every R1CS commit's V
+CT_K17_SHAPES = (("1 output, one base", 1, 1), ("1 output, two bases", 1, 2),
+                 ("512 commitments", 512, 2), ("4,096 commitments", 4096, 2))
+# K18's timed and checked groups: a 1- and 2-point msm_secret, m = 1's A
+# and S, m = 32's bit commitments, the 2^15 circuit's phases
+CT_K18_SHAPES = {"1": [1], "2": [2], "129 x 2": [129, 129],
+                 "129 x 32": [129] * 32,
+                 "2^15 phases": [65537, 32769, 65537]}
+CT_K18_TIMED = ("1", "2", "129 x 32", "2^15 phases")
 
-    eng = TorchEngine(dev)
+
+def ct_scalar_words(dev, seed):
+    """-> words(n, kind): (8, n) canonical scalar words on the card, kind
+    "zero", "max" (ℓ - 1 each), "random" (below 2^252) or "edges" (random
+    with 0, ℓ - 1, 2^64 - 1 and 1 in the first columns)."""
+    from zkvm_tpu_torch.constants import L
+    from zkvm_tpu_torch.kernels.words import scalar_words, to_device
     gen = torch.Generator(device=dev)
-    gen.manual_seed(2032)
+    gen.manual_seed(seed)
     special = to_device(scalar_words([0, L - 1, (1 << 64) - 1, 1]).T, dev)
 
-    def scalar_words_dev(n, kind):
-        """(8, n) scalar words on the card: "zero", "max" (ℓ - 1 each),
-        "random" below 2^252, or "edges" (random with 0, ℓ - 1, 2^64 - 1
-        and 1 in the first columns)."""
+    def words(n, kind):
         if kind == "zero":
             return torch.zeros((8, n), dtype=torch.int32, device=dev)
         if kind == "max":
@@ -1101,6 +1105,96 @@ def ct_phase(smi, dev, r1cs_bp, pc, reset, counts):
             k = min(n, 4)
             w[:, :k] = special[:, :k]
         return w
+    return words
+
+
+def ct_spread(smi, tag, make, call, kernels):
+    """Events (each call alone, min and median of 5) and profiler kernel
+    time (min and median of three traces of three calls) on each scalar
+    set of CT_SETS -> {set: (event min, event median, device min, device
+    median)}; prints them with the spreads, (max - min) / min, of the event
+    and the device medians."""
+    out = {}
+    for kind in CT_SETS:
+        args = make(kind)
+        call(*args)
+        evs = []
+        for _ in range(5):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            torch.cuda.synchronize()
+            start.record()
+            call(*args)
+            end.record()
+            torch.cuda.synchronize()
+            evs.append(start.elapsed_time(end))
+        devs = [device_ms(lambda: call(*args), kernels, 3) for _ in range(3)]
+        devs = sorted(x for x in devs if x is not None)
+        out[kind] = (min(evs), sorted(evs)[2], devs[0] if devs else None,
+                     devs[len(devs) // 2] if devs else None)
+
+    def spread(i):
+        v = [x[i] for x in out.values()]
+        return "not measured" if None in v else \
+            f"{(max(v) - min(v)) / min(v):.4f}"
+    print(f"{tag} by scalar set, ms (event min / median of 5; device "
+          "min / median of 3 traces): " + "; ".join(
+              f"{k} {v[0]:.4f} / {v[1]:.4f}, device {fmt_ms(v[2])} / "
+              f"{fmt_ms(v[3])}" for k, v in out.items())
+          + f"; spread of the medians (max - min) / min: events "
+          f"{spread(1)}, device {spread(3)} [{smi}]", flush=True)
+    return out
+
+
+def ct_timings(smi, fb, mc, tabs, points_for, words):
+    """K17 (fixed_base module fb, over the tables `tabs` of two bases) at
+    CT_K17_SHAPES and K18 (msm_ct module mc) at CT_K18_TIMED, each on the three
+    scalar sets (ct_spread) -> {tag: {set: stats, "bound": bound_ms(...)}}.
+    Bounds count ADD products an addition, as for K3 and K5s: K17 64 a
+    base and output, K18 71 a point and 8 MUL (its table's cached forms);
+    neither counts the tree its kernel adds."""
+    out = {}
+    for name, n, nb in CT_K17_SHAPES:
+        def make(kind, n=n, nb=nb):
+            w = words(2 * n, kind)
+            args = (tabs[0], w[:, :n].contiguous())
+            return args + (tabs[1], w[:, n:].contiguous()) if nb == 2 else args
+        tag = f"K17 {name}"
+        out[tag] = ct_spread(smi, tag, make, fb.fixed_base_ct,
+                             {"fixed_base_kernel": 1})
+        out[tag]["bound"] = bound_ms(
+            nb * (n * 32 + tabs[0].numel() * 4) + n * 160, nb * n * 64 * ADD)
+    for name in CT_K18_TIMED:
+        sizes = CT_K18_SHAPES[name]
+        N, lv = sum(sizes), len(mc.plan(sizes))
+        pts = points_for(sizes)
+        tag = f"K18 {name}"
+        out[tag] = ct_spread(
+            smi, tag, lambda kind: (pts, words(N, kind), sizes), mc.msm_ct,
+            {"msm_ct_chunk_kernel": 1, "msm_ct_reduce_kernel": lv - 1})
+        out[tag]["bound"] = bound_ms(N * (160 + 32) + len(sizes) * 64 * 160,
+                                     N * 71 * ADD + 8 * N * MUL)
+    for tag, v in out.items():
+        print(f"{tag}: bound_ms={v['bound'][0]:.5f} ({v['bound'][1]})",
+              flush=True)
+    return out
+
+
+def ct_phase(smi, dev, r1cs_bp, pc, reset, counts):
+    """Phase 10d: K17 fixed_base_ct and K18 msm_ct on the card, the routes
+    of every call on secret scalars; -> (their results for the kernels
+    line, the launch counts of the route check's engine calls)."""
+    from zkvm_tpu_torch.constants import L
+    from zkvm_tpu_torch.kernels import engine as engine_mod
+    from zkvm_tpu_torch.kernels import fixed_base as fb
+    from zkvm_tpu_torch.kernels import msm, msm_ct, sort
+    from zkvm_tpu_torch.kernels import scalarmod as sm
+    from zkvm_tpu_torch.kernels.combine import horner_fold
+    from zkvm_tpu_torch.kernels.engine import TorchEngine, _point_words
+    from zkvm_tpu_torch.kernels.words import to_device, words_to_points
+
+    eng = TorchEngine(dev)
+    scalar_words_dev = ct_scalar_words(dev, 2032)
 
     def halves(w):
         n = w.shape[1] // 2
@@ -1140,17 +1234,16 @@ def ct_phase(smi, dev, r1cs_bp, pc, reset, counts):
             "K17's basepoint_mul differs from the host formula")
     print(f"K17 fixed_base_ct: its tables of B and B_blinding, and batches "
           f"of 1, 4, 512 and 4,096 (one and two bases, scalars 0, ℓ - 1, "
-          f"2^64 - 1 among random ones) equal to the plain version bit for "
-          f"bit; commitments equal to the host formula [{smi}]", flush=True)
+          f"2^64 - 1 among random ones) equal to the plain "
+          f"version bit for bit; commitments equal to the host formula "
+          f"[{smi}]", flush=True)
 
     # K18 bit for bit: groups of 1, 2, 129 (m = 1's A and S), 32 x 129
     # (m = 32's bit commitments) and the 2^15 circuit's phase shapes
     gens = [pc.B_blinding] + r1cs_bp.G(32768, 1) + r1cs_bp.H(32768, 1)
     allp = words_to_points(to_device(np.ascontiguousarray(np.stack(
         [_point_words(p) for p in gens]).transpose(1, 2, 0)), dev))
-    phase = [65537, 32769, 65537]
-    shapes = {"1": [1], "2": [2], "129 x 2": [129, 129],
-              "129 x 32": [129] * 32, "2^15 phases": phase}
+    shapes = CT_K18_SHAPES
 
     def points_for(sizes):
         return torch.cat([allp[:, :, :n] for n in sizes], 2).contiguous()
@@ -1187,81 +1280,23 @@ def ct_phase(smi, dev, r1cs_bp, pc, reset, counts):
                             msm_ct.msm_ct)])
 
     # times on three sets of scalars: all zero, all ℓ - 1, random
-    def spread(tag, make, call, kernels):
-        """Events (each call alone) and profiler kernel time (three traces
-        of three calls) on each scalar set -> the random set's medians."""
-        out = {}
-        for kind in ("zero", "max", "random"):
-            args = make(kind)
-            call(*args)
-            evs = []
-            for _ in range(5):
-                start, end = (torch.cuda.Event(enable_timing=True)
-                              for _ in range(2))
-                torch.cuda.synchronize()
-                start.record()
-                call(*args)
-                end.record()
-                torch.cuda.synchronize()
-                evs.append(start.elapsed_time(end))
-            devs = [device_ms(lambda: call(*args), kernels, 3)
-                    for _ in range(3)]
-            devs = sorted(x for x in devs if x is not None)
-            out[kind] = (min(evs), sorted(evs)[2],
-                         devs[0] if devs else None,
-                         devs[len(devs) // 2] if devs else None)
-        meds = [v[1] for v in out.values()]
-        print(f"{tag} by scalar set, ms (event min / median of 5; device "
-              "min / median of 3 traces): " + "; ".join(
-                  f"{k} {v[0]:.4f} / {v[1]:.4f}, device {fmt_ms(v[2])} / "
-                  f"{fmt_ms(v[3])}" for k, v in out.items())
-              + f"; spread of the event medians (max - min) / min "
-              f"{(max(meds) - min(meds)) / min(meds):.4f} [{smi}]",
-              flush=True)
-        return out["random"]
-
-    def k17_inputs(n):
-        def make(kind):
-            wv, wb = halves(scalar_words_dev(2 * n, kind))
-            return tab_b, wv, tab_bb, wb
-        return make
-
-    t17 = {n: spread(f"K17 {n} commitments", k17_inputs(n),
-                     fb.fixed_base_ct, {"fixed_base_kernel": 1})
-           for n in (512, 4096)}
-
-    def k18_inputs(sizes):
-        pts = points_for(sizes)
-        return lambda kind: (pts, scalar_words_dev(sum(sizes), kind), sizes)
-
-    t18 = {}
-    for name in ("129 x 32", "2^15 phases"):
-        sizes = shapes[name]
-        lv = len(msm_ct.plan(sizes))
-        t18[name] = spread(f"K18 {name}", k18_inputs(sizes), msm_ct.msm_ct,
-                           {"msm_ct_chunk_kernel": 1,
-                            "msm_ct_reduce_kernel": lv - 1})
-
-    # bounds: ADD products per addition, as K3's and K5s's are counted
+    t = ct_timings(smi, fb, msm_ct, (tab_b, tab_bb), points_for,
+                   scalar_words_dev)
     n = 512
-    args17 = k17_inputs(n)("random")
-    a17 = fb.fixed_base_ct(*args17)
+    args17 = (tab_b,) + halves(scalar_words_dev(2 * n, "random"))
+    args17 = args17[:2] + (tab_bb, args17[2])
+    t17 = t["K17 512 commitments"]
     res17 = dict(
-        err=err17, ms=t17[n][1], dev_ms=t17[n][3],
+        err=err17, ms=t17["random"][1], dev_ms=t17["random"][3],
         plain_ms=cuda_ms(lambda: fb.fixed_base_plain(*args17), 1),
-        lib_ms=None,
-        bound=bound_ms(2 * n * 32 + 2 * tab_b.numel() * 4 + a17.numel() * 4,
-                       2 * n * 64 * ADD))
+        lib_ms=None, bound=t17["bound"])
     sizes = shapes["2^15 phases"]
-    N, lv = sum(sizes), msm_ct.plan(sizes)
-    tree_adds = sum(len(a[0]) - len(b[0]) for a, b in zip(lv, lv[1:])) * 64
-    pts, w = points_for(sizes), scalar_words_dev(N, "random")
+    pts, w = points_for(sizes), scalar_words_dev(sum(sizes), "random")
+    t18 = t["K18 2^15 phases"]
     res18 = dict(
-        err=err18, ms=t18["2^15 phases"][1], dev_ms=t18["2^15 phases"][3],
+        err=err18, ms=t18["random"][1], dev_ms=t18["random"][3],
         plain_ms=cuda_ms(lambda: msm_ct.msm_ct_plain(pts, w, sizes), 1),
-        lib_ms=None,
-        bound=bound_ms(N * (160 + 32) + len(sizes) * 64 * 160,
-                       (N * 71 + tree_adds) * ADD + 8 * N * MUL))
+        lib_ms=None, bound=t18["bound"])
     for key, v, what in (("K17", res17, "512 commitments, two bases"),
                          ("K18", res18, "the 2^15 phases, 163,843 points")):
         print(f"{key} ({what}): kernel_ms={v['ms']:.4f} device_only_ms="

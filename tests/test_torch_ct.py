@@ -2,15 +2,17 @@
 msm_ct (kernels/fixed_base.py, kernels/msm_ct.py), through
 TorchEngine("cpu"), whose wrappers run the kernels' plain versions.
 
-Item 1 holds basepoint_mul, commit_batch (K17), msm_batch(ct=True) and
-bit_commit_batch (K18, then K4 at w = 4) against the JAX package's
-native constant-time functions (ed_fixed_mul, ed_fixed_commit_batch,
-ed_msm with ct, ed_bit_commit) and against the port's oracle, as
-Ristretto points, on seeded scalars with the edge values 0, 1, ℓ - 1 and
-scalars below 2^64, and on groups of 0, 1, 3 and 17 points; then shows
-that the torch operations the twins dispatch (recorded with a
-TorchDispatchMode, each one's name and its tensors' shapes) are the same
-sequence for all-zero scalars as for random ones.
+Item 1 holds basepoint_mul, commit, commit_batch (K17; one output with
+one base and with two, and a batch through fixed_base_ct), msm_secret,
+msm_batch(ct=True) and bit_commit_batch (K18, then K4 at w = 4) against
+the JAX package's native constant-time functions (ed_fixed_mul,
+ed_fixed_commit_batch, ed_msm with ct, ed_bit_commit) and against the
+port's oracle, as Ristretto points, on seeded scalars with the edge values
+0, 1, ℓ - 1 and scalars below 2^64, and on groups of 0, 1, 2, 3, 17 and 8
+points (the slot step, 8, divides only the last) and a 1- and 2-point
+msm_secret; then shows that the torch operations the twins dispatch
+(recorded with a TorchDispatchMode, each one's name and its tensors'
+shapes) are the same sequence for all-zero scalars as for random ones.
 
 Item 2 proves a range proof (n = 8, m = 2) and an R1CS circuit (one
 committed value under an 8-bit range gadget) with every call on secret
@@ -41,7 +43,8 @@ from zkvm_tpu_torch.kernels import engine as engine_mod
 from zkvm_tpu_torch.kernels import fixed_base, msm, msm_ct
 from zkvm_tpu_torch.kernels import scalarmod as sm
 from zkvm_tpu_torch.kernels.engine import TorchEngine
-from zkvm_tpu_torch.kernels.words import points_words, to_device, words_to_points
+from zkvm_tpu_torch.kernels.words import (points_to_ints, points_words, to_device,
+                                          words_to_points)
 from zkvm_tpu_torch.oracle import edwards
 from zkvm_tpu_torch.oracle.ristretto import BASEPOINT, RistrettoPoint
 from zkvm_tpu_torch.proofs.engine import Engine
@@ -104,11 +107,22 @@ def test_ct_twins_equal_the_reference_native_and_a_fixed_schedule():
                 == _enc(jnative.ed_fixed_mul(slot_b, k, True)))
     assert (eng.basepoint_mul(values[-1], ct=False).compress()
             == got[-1])
+    # one output with two bases (an R1CS V), and the batch in one call
+    v, b = values[-2], blindings[-2]
+    assert (eng.commit(v, b, pc.B, pc.B_blinding).compress() == got[-2]
+            == pc.commit(v, b).compress())
+    words = eng.scalar_words(values + blindings)
+    n = len(values)
+    wv, wb = words[:, :n].contiguous(), words[:, n:].contiguous()
+    tab_b, tab_bb = eng.fixed_table(pc.B), eng.fixed_table(pc.B_blinding)
+    out = fixed_base.fixed_base_ct(tab_b, wv, tab_bb, wb)
+    assert [_enc(ep) for ep in points_to_ints(out)] == got
 
-    # K18 then K4: groups of 0, 1, 3 and 17 points, edge scalars in each
+    # K18 then K4: groups of 0, 1, 2, 3, 17 and 8 points (the last a whole
+    # number of slot steps), edge scalars in each
     pts = G + H
     groups, points, at = [], [], 0
-    for n in (0, 1, 3, 17):
+    for n in (0, 1, 2, 3, 17, 8):
         groups.append([EDGES[(at + i) % len(EDGES)] if i % 2 == 0
                        else r.randrange(L) for i in range(n)])
         points.append(pts[at:at + n])
@@ -117,9 +131,11 @@ def test_ct_twins_equal_the_reference_native_and_a_fixed_schedule():
     assert got[0] == bytes(32)
     for g, s, p in zip(got[1:], groups[1:], points[1:]):
         assert g == _enc(jnative.ed_msm(s, [q.ep for q in p], ct=True))
-    assert got[1:3] == [_oracle_msm(s, p) for s, p in zip(groups[1:3],
-                                                          points[1:3])]
-    assert eng.msm_secret(groups[2], points[2]).compress() == got[2]
+    assert got[1:4] == [_oracle_msm(s, p) for s, p in zip(groups[1:4],
+                                                          points[1:4])]
+    # a 1- and a 2-point msm_secret
+    assert [eng.msm_secret(groups[i], points[i]).compress()
+            for i in (1, 2)] == got[1:3]
 
     # K18: the range proof's A commitment, a_R = a_L - 1
     bits = [r.randrange(2) for _ in range(8)]
@@ -136,16 +152,18 @@ def test_ct_twins_equal_the_reference_native_and_a_fixed_schedule():
         sm.decode_words_first(words), fixed_base.WBITS))
 
     # the twins' schedule: the same operations on the same shapes for
-    # all-zero scalars as for random ones (a K17 row of one base, a K18
-    # group of one point: each 64 selects and additions)
-    tab = eng.fixed_table(pc.B)
-    pt = words_to_points(to_device(points_words([G[0].ep]), "cpu"))
+    # all-zero scalars as for random ones (K17: one output of one base,
+    # two outputs of two; K18: a group of one point and one of two)
+    pt = words_to_points(to_device(points_words([G[0].ep, G[1].ep, H[0].ep]),
+                                   "cpu"))
 
     def schedule(k):
         with _Ops() as rec:
-            words = eng.scalar_words([k])
-            fixed_base.fixed_base_ct(tab, words)
-            msm_ct.msm_ct(pt, words, [1])
+            words = eng.scalar_words([k, k, k])
+            fixed_base.fixed_base_ct(tab_b, words[:, :1].contiguous())
+            fixed_base.fixed_base_ct(tab_b, words[:, :2].contiguous(), tab_bb,
+                                     words[:, 1:].contiguous())
+            msm_ct.msm_ct(pt, words, [1, 2])
         return rec.ops
 
     zero = schedule(0)

@@ -1,12 +1,14 @@
 """K2's and K3's scratch is sized in kernels/msm.py, K18's in
 kernels/msm_ct.py, from copies of the kernels' compile-time constants:
 the copies must equal the .cu sources' (the C entries also refuse a
-scratch too short for their own)."""
+scratch too short for their own).  So must K18's slot step, whose chunk
+lengths the twin repeats, and K17's split (kernels/fixed_base.py), whose
+tree the twin repeats."""
 
 import re
 from pathlib import Path
 
-from zkvm_tpu_torch.kernels import msm, msm_ct
+from zkvm_tpu_torch.kernels import fixed_base, msm, msm_ct
 
 CSRC = Path(msm.__file__).resolve().parent / "csrc"
 
@@ -25,3 +27,8 @@ def test_scratch_constants_match_the_kernels():
                                                   msm.FOLD_GROUPS)
     ct = _constants("msm_ct.cu")
     assert (ct["kChunk"], ct["kWindows"]) == (msm_ct.CHUNK, msm_ct.WINDOWS)
+    assert ct["kSlotStep"] == msm_ct.SLOT_STEP
+    fb = _constants("fixed_base.cu")
+    assert (fb["kWindows"], fb["kEntries"]) == (fixed_base.WINDOWS,
+                                                fixed_base.ENTRIES)
+    assert fb["kSplit"] == fixed_base.SPLIT

@@ -139,6 +139,45 @@ __device__ __forceinline__ Fe lane_add_pt(int j, const Fe& mine,
     return lane_add(j, mine, lane_cached(j, q));
 }
 
+// a + b, or a - b where `minus`, limb by limb with no carry pass
+__device__ __forceinline__ Fe fe_add_sub_lazy(const Fe& a, const Fe& b,
+                                              bool minus) {
+    Fe r;
+#pragma unroll
+    for (int i = 0; i < 10; i++)
+        r.v[i] = minus ? a.v[i] - b.v[i] : a.v[i] + b.v[i];
+    return r;
+}
+
+// lane_add with its sums left uncarried (K17, K18); three carry passes a
+// lane fewer.  Limb audit, against field25519.cuh's (fe_mul takes |f_i|,
+// |g_i| <= 1.65 * 2^W_i; its int32 pre-scalings are 2 f_i for odd i and
+// 19 g_j; its worst int64 column, 1.65^2 * 124.5 * 2^52 = 2^60.4, still
+// leaves carried limbs after its two passes):
+//   * the second products take E, F, G, H, sums of two products (carried,
+//     |limb| <= 0.52 * 2^W), so within 1.04 * 2^W on both sides;
+//   * the first takes Y1 -+ X1, T1 or Z1 as f and the cached operand as g:
+//     a carried entry or its limb-wise negation (within 0.52 * 2^W).  f is
+//     within 1.04 * 2^W when acc is carried (a product, or the identity);
+//     when acc is a point loaded from memory (K18's first table addition)
+//     with any |limb| < 2^W, canonical or carried, |Y1 -+ X1| < 2 * 2^W:
+//     then f_i and 2 f_i (odd i) stay below 2^27 and 19 g_j below 2^30 in
+//     int32, and every column is at most 2 * 0.52 * 124.5 * 2^52 =
+//     129.5 * 2^52 ~ 2^59.02, inside the audited 2^60.4.
+// Every output coordinate is a product, carried.  Plain twin:
+// fixed_base.py add_cached_lazy.
+__device__ __forceinline__ Fe lane_add_lazy(int j, const Fe& mine,
+                                            const Fe& cached) {
+    const Fe a = shfl_fe(mine, j < 2 ? 1 : 5 - j);        // Y1, Y1, T1, Z1
+    const Fe x = shfl_fe(mine, 0);
+    const Fe v = fe_mul(j < 2 ? fe_add_sub_lazy(a, x, j == 0) : a, cached);
+    const bool e1 = j == 0 || j == 3, h2 = j == 1 || j == 3;
+    const Fe p = shfl_fe(v, e1 ? 1 : 3), q = shfl_fe(v, e1 ? 0 : 2);
+    const Fe r = shfl_fe(v, h2 ? 1 : 3), t = shfl_fe(v, h2 ? 0 : 2);
+    return fe_mul(fe_add_sub_lazy(p, q, j != 1),
+                  fe_add_sub_lazy(r, t, j == 0));
+}
+
 // ------------------------------------------------- column-split elements
 
 // Lane q of a group of five holds limbs 2q and 2q + 1 of an element.

@@ -18,16 +18,17 @@
 // is T_w = Σ_i d_(i,w)·P_i; K4 (horner_check.cu) then folds Σ_w 16^w T_w.
 //   1. msm_ct_chunk_kernel: one block per chunk, a run of up to kChunk
 //      consecutive points of one group (the segment table's start and
-//      count), kGroups = 64 groups of four lanes.  Group g builds the
+//      count), kGroups = 64 groups of four lanes.  The chunk runs `slots`
+//      slots, its count rounded up to kSlotStep: a public size, read from
+//      the segment table, never from a digit.  Group g < slots builds the
 //      table of the chunk's point g, its cached forms of 1·P .. 8·P (seven
 //      additions), in shared memory, and lane 0 of the group recodes the
 //      point's scalar into the chunk's digit table there (64 bytes a
-//      point, zeros past the chunk's count); then group g is window g:
-//      from the identity it adds, for each of the kChunk slots in order, the select
-//      of the slot's table by the slot's digit g.  A slot past the chunk's
-//      count takes digit 0 (the identity) and a table of the chunk's last
-//      point, so every chunk runs kChunk additions a window.  The tables
-//      stay in shared memory across the 64 windows: 84 KB a block, where
+//      point); a slot past the chunk's count takes the chunk's last point
+//      and digit 0 (the identity).  Then group g is window g: from the
+//      identity it adds, for each of the chunk's slots in order, the
+//      select of the slot's table by the slot's digit g.  The tables stay
+//      in shared memory across the 64 windows (1.28 KB a point), where
 //      re-reading them from device memory would move 1.28 KB a point and
 //      window.  It writes the chunk's 64 partial totals;
 //   2. msm_ct_reduce_kernel, a fixed tree over the chunks: one block per
@@ -35,13 +36,30 @@
 //      (a row = 64 window points), group g summing window g of its rows in
 //      order (lane_add of each row's cached form).  Levels repeat until
 //      each group has one row; a group already down to one row is copied.
-// The chunk and segment tables are made on the host from the groups'
-// sizes alone (msm_ct.py plan), which are public.
+// The chunk and segment tables are made on the host from the groups' sizes
+// alone (msm_ct.py plan), which are public, and kept on the device by that
+// tuple of sizes, so a repeated shape uploads nothing.
+//
+// The shape.  A window chain step is a select and a lane_add_lazy
+// (lanes.cuh: no carry pass in its sums, none in the select's negation),
+// and the fewer instructions a step are what made the kernel faster: the
+// steps of 8 warps already share an SM's integer pipes, so more warps an
+// SM bought little.  Timed on an H100 (700 W) with chunks of 64 points
+// (84 KB of shared memory, 2 blocks an SM), 32 (42 KB; 2, 3 or 4 blocks
+// by the register cap) and 16 (4 blocks), at 1, 2, 32 x 129 points and
+// the 2^15 circuit's three phases: kChunk = 32 with kMinBlocks = 3 (80
+// registers, 36 bytes spilled) was the fastest at 2^15 points (by 0.5-2 %
+// over the other 32- and 64-point chunks, 8 % over 16) and within 4 % of
+// them at the small shapes; chunks of 16 were 13 % faster at 32 x 129,
+// where their chains are half as long and 288 blocks spread better over
+// 132 SMs.  A select reads its eight entries with 8-byte loads (five a
+// coordinate, not ten).
 //
 // Constant-time audit (ct_select.cuh audits the select):
-//   * every chunk runs kChunk slots of 64 windows, and every reduce block
-//     its segment's count of rows: trip counts from the sizes, never from
-//     a digit;
+//   * every chunk runs its `slots` slots of 64 windows, and every reduce
+//     block its segment's count of rows: trip counts from the sizes, never
+//     from a digit; which warps build a table (g < slots, whole warps,
+//     since kSlotStep is a warp's eight groups) also comes from the count;
 //   * a select reads all eight entries of its slot's table at shared
 //     addresses made from the slot, the entry, the coordinate and the
 //     limb; the digit is read at slot * 64 + g of the digit table, which
@@ -49,8 +67,8 @@
 //     from the scalar's words, read at k * n + start + g;
 //   * the slots past a chunk's count get digit 0 by an and with a mask
 //     made from the public count, not a branch;
-//   * lane_cached, lane_add (lanes.cuh) and the fe_mul, fe_sq and
-//     carry_pass they run (field25519.cuh) are straight-line: selects on
+//   * lane_cached, lane_add_lazy, lane_add_pt (lanes.cuh) and the fe_mul,
+//     fe_sq and carry_pass they run (field25519.cuh) are straight-line: selects on
 //     the lane's coordinate j, loops of compile-time trip counts, no limb
 //     value reaching a branch or an address.
 // Scratch: the levels' rows below the last, one buffer the wrapper sizes
@@ -71,13 +89,17 @@ namespace {
 
 constexpr int kWindows = 64;   // radix-16 digits a scalar
 constexpr int kEntries = 8;    // 1·P .. 8·P
-constexpr int kChunk = 64;     // points a chunk (one table a group)
+constexpr int kChunk = 32;     // points a chunk (one table a group)
+constexpr int kSlotStep = 8;   // a chunk's slots: its count rounded up
+constexpr int kMinBlocks = 3;  // chunk blocks an SM (the register cap)
 constexpr int kGroups = kWindows;
 constexpr int kEntryInts = 4 * 10;
 constexpr int kTableInts = kEntries * kEntryInts;
 constexpr int kScratchTooShort = -1;   // kernels/_build.py SCRATCH_TOO_SHORT
+static_assert(kChunk % kSlotStep == 0 && kChunk <= kGroups &&
+              kSlotStep % 8 == 0, "slots come in whole warps of groups");
 
-__global__ void __launch_bounds__(4 * kGroups, 2) msm_ct_chunk_kernel(
+__global__ void __launch_bounds__(4 * kGroups, kMinBlocks) msm_ct_chunk_kernel(
     const int32_t* __restrict__ pts, const int32_t* __restrict__ words,
     const int32_t* __restrict__ start, const int32_t* __restrict__ count,
     int32_t* __restrict__ out, int64_t n, int64_t rows) {
@@ -87,8 +109,9 @@ __global__ void __launch_bounds__(4 * kGroups, 2) msm_ct_chunk_kernel(
     const int g = threadIdx.x >> 2, j = threadIdx.x & 3;
     const int64_t s = start[c];
     const int cnt = count[c];
-    {   // the table and digits of slot g (the chunk's last point past its
-        // count, its digits masked to 0)
+    const int slots = (cnt + kSlotStep - 1) / kSlotStep * kSlotStep;
+    if (g < slots) {   // the table and digits of slot g (the chunk's last
+                       // point past its count, its digits masked to 0)
         const int64_t idx = s + (g < cnt ? g : cnt - 1);
         if (j == 0) {
             const int32_t live = -(int32_t)(g < cnt);
@@ -106,7 +129,7 @@ __global__ void __launch_bounds__(4 * kGroups, 2) msm_ct_chunk_kernel(
 #pragma unroll
         for (int i = 0; i < 10; i++) t[i] = cp.v[i];
         for (int k = 1; k < kEntries; k++) {
-            mine = lane_add(j, mine, cp);
+            mine = lane_add_lazy(j, mine, cp);
             const Fe e = lane_cached(j, mine);
 #pragma unroll
             for (int i = 0; i < 10; i++) t[k * kEntryInts + i] = e.v[i];
@@ -114,19 +137,12 @@ __global__ void __launch_bounds__(4 * kGroups, 2) msm_ct_chunk_kernel(
     }
     __syncthreads();
     Fe acc = lane_identity(j);
-    for (int slot = 0; slot < kChunk; slot++) {
+    for (int slot = 0; slot < slots; slot++) {
         const int32_t d = dig[slot * kWindows + g];
         const int32_t* t = tab + slot * kTableInts + j * 10;
         const Fe sel = lane_select_signed(
-            j,
-            [&](int k) {
-                Fe r;
-#pragma unroll
-                for (int i = 0; i < 10; i++) r.v[i] = t[k * kEntryInts + i];
-                return r;
-            },
-            d);
-        acc = lane_add(j, acc, sel);
+            j, [&](int k) { return fe_load_row(t + k * kEntryInts); }, d);
+        acc = lane_add_lazy(j, acc, sel);
     }
     fe_store(out, j, (int64_t)c * kWindows + g, rows * kWindows, acc);
 }

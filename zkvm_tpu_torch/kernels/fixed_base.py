@@ -6,15 +6,16 @@ ed_fixed_commit_batch), which keep basepoint_mul, commit and commit_batch
 constant-time in the secret scalar.  The CUDA kernels are
 csrc/fixed_base.cu: a set-up entry (table) that builds a base's radix-16
 table on the card, and the batch entry (fixed_base_ct) that computes
-v_i·P + b_i·Q, or v_i·P alone, one group of four lanes an output, from
-the canonical scalars' words, which it recodes into signed radix-16
-digits as it goes, each window's row read whole and picked by mask
-(csrc/ct_select.cuh).
+v_i·P + b_i·Q, or v_i·P alone, with SPLIT = 64 groups of four lanes an
+output, each adding the masked picks of its one window (the window's row
+read whole and picked by mask, csrc/ct_select.cuh; the digits recoded from
+the canonical scalars' words on the card), then a fixed tree of six levels
+over the 64 partial sums.
 
 The plain twins (table_plain, fixed_base_plain, select_cached,
-radix16_plain) run the kernels' field operations in the kernels' order,
-with torch.where in place of the masked moves, so the card's limbs equal
-theirs bit for bit; their dispatched operations do not depend on the
+add_cached_lazy, radix16_plain) run the kernels' field operations in the
+kernels' order, with torch.where in place of the masked moves, so the
+card's limbs equal theirs bit for bit; their dispatched operations do not depend on the
 scalars either.  A wrapper takes its twin only for CPU tensors; on a CUDA
 tensor it launches or raises.
 """
@@ -30,6 +31,7 @@ from .combine import add_cached, cached
 WINDOWS = 64      # signed radix-16 digits a scalar (scalarmod at w = 4)
 ENTRIES = 8       # (k + 1)·16^w·P, k = 0..7
 WBITS = 4
+SPLIT = 64        # groups an output (csrc/fixed_base.cu kSplit)
 
 
 def cached_identity(like: torch.Tensor):
@@ -60,14 +62,27 @@ def select_cached(row: torch.Tensor, digits: torch.Tensor):
     """ct_select.cuh's lane_select_signed: row (4, 10, ..., 8) int64, the
     cached coordinates of entry k = (k + 1)·P, digits (...) in [-8, 8] ->
     the cached form of digit·P, four (10, ...) tensors: every entry picked
-    by mask, then negated by mask, (Y + X, Y - X, -2d T, 2 Z)."""
+    by mask, then negated by mask, (Y + X, Y - X, -2d T, 2 Z), -2d T limb
+    by limb with no carry pass."""
     sign, mag = digits < 0, digits.abs()
     r = torch.stack(cached_identity(torch.zeros(
         (F.NL,) + digits.shape, dtype=torch.int64, device=digits.device)))
     for k in range(ENTRIES):
         r = torch.where(mag == k + 1, row[..., k], r)
-    flipped = torch.stack((r[1], r[0], F.neg(r[2]), r[3]))
+    flipped = torch.stack((r[1], r[0], -r[2], r[3]))
     return tuple(torch.where(sign, flipped, r).unbind(0))
+
+
+def add_cached_lazy(p, q):
+    """lanes.cuh's lane_add_lazy: combine.add_cached with its sums and
+    differences left uncarried, each within fe_mul's input bound."""
+    X1, Y1, Z1, T1 = p
+    A = F.mul(Y1 - X1, q[0])
+    B = F.mul(Y1 + X1, q[1])
+    C = F.mul(T1, q[2])
+    D = F.mul(Z1, q[3])
+    E, Fv, G, H = B - A, D - C, D + C, B + A
+    return F.mul(E, Fv), F.mul(G, H), F.mul(Fv, G), F.mul(E, H)
 
 
 def table_plain(point: torch.Tensor) -> torch.Tensor:
@@ -102,18 +117,23 @@ def _rows(table: torch.Tensor) -> torch.Tensor:
 def fixed_base_plain(tab_p: torch.Tensor, words_p: torch.Tensor,
                      tab_q: torch.Tensor | None = None,
                      words_q: torch.Tensor | None = None) -> torch.Tensor:
-    """As fixed_base_kernel: from the identity, per window w the select of
-    P's row w by v's digit w added, then Q's by b's -> (4, 10, n) int32."""
+    """As fixed_base_kernel: group w of an output, from the identity, adds
+    the select of P's row w by v's digit w, then Q's by b's; then the 64
+    partial sums pairwise, part[2p] + part[2p + 1], until one is left ->
+    (4, 10, n) int32.  Every group and every output at once: one or two
+    selects and additions, then six tree levels."""
     n = words_p.shape[1]
-    acc = F.identity_like(torch.zeros((F.NL, n), dtype=torch.int64,
+    acc = F.identity_like(torch.zeros((F.NL, n, SPLIT), dtype=torch.int64,
                                       device=words_p.device))
     bases = [(_rows(tab_p), radix16_plain(words_p))]
     if tab_q is not None:
         bases.append((_rows(tab_q), radix16_plain(words_q)))
-    for w in range(WINDOWS):
-        for rows, d in bases:
-            acc = add_cached(acc, select_cached(rows[:, :, w:w + 1], d[:, w]))
-    return F.pack_points(acc)
+    for rows, d in bases:
+        acc = add_cached_lazy(acc, select_cached(rows[:, :, None], d))
+    while acc[0].shape[-1] > 1:
+        acc = add_cached_lazy(tuple(c[..., 0::2] for c in acc),
+                              cached(tuple(c[..., 1::2] for c in acc)))
+    return F.pack_points(tuple(c[..., 0] for c in acc))
 
 
 def table(point: torch.Tensor) -> torch.Tensor:

@@ -62,10 +62,10 @@
    small route at w = 6 to 10 at 1,055, 1,282 and 2,048 points (min and
    median), and the Cloak device half by stage; shows that
    window_totals_small launches K5s and K3 once each (launch counts) and
-   no other kernel after the sort (torch.profiler, in a child process:
-   python3 chip_smoke.py --launch-check), with no host sync (CUDA sync
-   debug mode); and prints the route crossover (both routes on the same
-   inputs at 1,055, 1,282 and 2,048 points, totals equal);
+   no other kernel after the sort (torch.profiler, in child processes:
+   python3 chip_smoke.py --launch-check whole|sort), with no host sync
+   (CUDA sync debug mode); and prints the route crossover (both routes on
+   the same inputs at 1,055, 1,282 and 2,048 points, totals equal);
 6. runs the bucket pipeline's three configurations (msm.MsmConfig: the
    default, sort + gather, affine) on the fused nb = 1024 and nb = 4096
    device halves and the 2^15-multiplier R1CS split check: equal window
@@ -186,7 +186,27 @@
    verify_multiple accepts, a flipped t_x bit rejects; min and median of 3
    walls), and one host corrupting its share, attributed to the
    reference's party positions; K17 and K18 must have launched;
-11. prints each phase's seconds, the kernels line (every launch count must
+11. the serving pipeline: TorchEngine.msm_start / msm_finish_is_identity
+   against msm_is_identity at 1,055 and 17,538 points (the start under
+   CUDA sync debug mode); then, with every launch count set to 0,
+   batch_verify_device_pipelined (kernels/batch_verify_device.py) on
+   streams of 8 batches at nb = 1024 and 4 at nb = 4096, one batch of each
+   with a t_x changed, every launch half under sync debug mode: the
+   verdicts must equal phase 4's on the same batches; prints each batch's
+   wall, host_s and device_s, the stream's verifies/s and the one-shot
+   batch_verify_device's on the same batch;
+12. the node (zkvm_tpu_torch.chain), with every launch count set to 0:
+   node A admits the committed block's 192 issue transactions through its
+   mempool and mines them, node B cold-syncs (chain.node.sync), node C
+   over the encrypted channel (chain.p2p.encrypted_sync, the handshakes'
+   secret scalars on K17 and K18, every host group operation raising in
+   them); tips, utxoroots and snapshots must agree, a restart from A's
+   snapshot keep the tip, a block with a tampered transaction or with its
+   transactions dropped be refused; prints each pass's seconds and tx/s;
+   then runs `python -m zkvm_tpu_torch.cli node-demo --blocks 3` (tips
+   must agree) and `verify` on one committed transaction in child
+   processes;
+13. prints each phase's seconds, the kernels line (every launch count must
    be > 0) and, last, the device line.
 
 Range proofs come from the committed fixtures in zkvm_tpu_torch/data,
@@ -202,6 +222,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -362,25 +383,33 @@ def same_ristretto(a, b):
                  | F.is_zero(F.sub(F.mul(Y1, Y2), F.mul(X1, X2)))).all())
 
 
-def kernel_counts(fn, reps=5, traces=4):
+class TraceLost(RuntimeError):
+    """Every trace of kernel_counts lost one of its marker kernels."""
+
+
+def kernel_counts(fn, reps=5, traces=8):
     """Kernels (and copies) fn() runs on the card per call, by name, from
-    traces of reps calls each.  A trace can drop kernel events, at its
-    start as well as at its end, so each trace is bracketed by two marker
-    kernels (torch.cuda._sleep's spin_kernel) and kept only if both are in
-    it, and each name keeps its largest count over the kept traces: a trace
-    drops events but never adds one."""
+    traces of reps calls each, and how many traces were kept.  A trace can
+    drop kernel events, at its start as well as at its end, so each trace
+    is bracketed by two marker kernels (torch.cuda._sleep's spin_kernel),
+    launched after a pause on the host once the profiler is on, and kept
+    only if both are in it; each name keeps its largest count over the
+    kept traces: a trace drops events but never adds one."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     best, kept = {}, 0
     for _ in range(traces):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            time.sleep(0.05)
             torch.cuda._sleep(100000)
             torch.cuda.synchronize()
             for _ in range(reps):
                 fn()
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
+            time.sleep(0.05)
         rows = {e.key: e.count for e in prof.key_averages()
                 if getattr(e, "device_time_total", 0) > 0}
         if sum(v for k, v in rows.items() if "spin_kernel" in k) != 2:
@@ -390,9 +419,9 @@ def kernel_counts(fn, reps=5, traces=4):
             if "spin_kernel" not in k:
                 best[k] = max(best.get(k, 0), v)
     if not kept:
-        raise RuntimeError(f"chip smoke failed: {traces} traces, none with "
-                           "both its marker kernels")
-    return {k: v / reps for k, v in best.items()}
+        raise TraceLost(f"chip smoke failed: {traces} traces, none with "
+                        "both its marker kernels")
+    return {k: v / reps for k, v in best.items()}, kept
 
 
 def native_phase(smi):
@@ -616,12 +645,17 @@ def native_phase(smi):
           f"verification_job_split_vec) [{smi}]", flush=True)
 
 
-def launch_check():
-    """python3 chip_smoke.py --launch-check, run by main() as a child
-    process: the kernels window_totals_small runs per call after its sort
-    (its trace less that of the sort alone) on a 1,055-point MSM at w = 8,
-    the Cloak's shape, printed as one JSON line with the sort's count.  A
-    fresh process, because the traces of a long one drop kernel events."""
+LAUNCH_CHECK = ("whole", "sort")
+TRACE_LOST = 3     # launch_check's exit code when every trace lost a marker
+
+
+def launch_check(which):
+    """python3 chip_smoke.py --launch-check whole|sort, run by main() as a
+    child process: the kernels that window_totals_small ("whole") or its
+    sort alone ("sort") runs per call on a 1,055-point MSM at w = 8, the
+    Cloak's shape, printed as one JSON line [counts, kept traces, traces].
+    A fresh process for each, because the traces of a long one drop kernel
+    events; it exits with TRACE_LOST if none of its traces could be read."""
     from zkvm_tpu_torch.constants import L
     from zkvm_tpu_torch.kernels import batch_verify_device as bvd
     from zkvm_tpu_torch.kernels import msm
@@ -641,12 +675,35 @@ def launch_check():
         keys, _ = msm.pack_keys(digits)
         return torch.sort(keys, dim=1).values.contiguous()
 
-    whole = kernel_counts(lambda: msm.window_totals_small(pts, digits, 8))
-    sort_n = kernel_counts(sort_only)
-    after = {k: v - sort_n.get(k, 0) for k, v in whole.items()
-             if v != sort_n.get(k, 0)}
-    print(json.dumps([after, sum(sort_n.values())]))
+    fn = {"whole": lambda: msm.window_totals_small(pts, digits, 8),
+          "sort": sort_only}[which]
+    traces = 8
+    try:
+        counts, kept = kernel_counts(fn, traces=traces)
+    except TraceLost as e:
+        print(e, file=sys.stderr)
+        return TRACE_LOST
+    print(json.dumps([counts, kept, traces]))
     return 0
+
+
+def launch_counts(which, tries=3):
+    """launch_check(which) in a fresh child process, and the number of
+    processes it took: a child whose traces all lost a marker read no
+    count, and a fresh one is started, up to `tries` in all; any other
+    failure ends the smoke."""
+    for started in range(1, tries + 1):
+        child = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                "--launch-check", which], capture_output=True,
+                               text=True, timeout=600)
+        if child.returncode == 0:
+            counts, kept, traces = json.loads(
+                child.stdout.strip().splitlines()[-1])
+            return counts, f"{kept} of {traces} traces kept, process {started}"
+        require(child.returncode == TRACE_LOST,
+                f"the launch check ({which}) failed: {child.stderr[-2000:]}")
+    require(False, f"the launch check ({which}): in {tries} processes every "
+                   f"trace lost a marker kernel")
 
 
 @contextlib.contextmanager
@@ -708,11 +765,25 @@ def host_group_ops_raise():
 @contextlib.contextmanager
 def host_group_ops_raise_in(*targets):
     """host_group_ops_raise while one of the functions named by targets,
-    (owner, attribute) pairs, runs."""
+    (owner, attribute) pairs, runs, in any thread: the stubs go in when the
+    first call enters and come out when the last one leaves."""
+    lock, active = threading.Lock(), []
+
     def raising(f):
         def inner(*args, **kwargs):
-            with host_group_ops_raise():
+            with lock:
+                if not active:
+                    stubs = host_group_ops_raise()
+                    stubs.__enter__()
+                    active.append(stubs)
+                active.append(None)
+            try:
                 return f(*args, **kwargs)
+            finally:
+                with lock:
+                    active.pop()
+                    if len(active) == 1:
+                        active.pop().__exit__(None, None, None)
         return inner
     saved = [(o, k, getattr(o, k)) for o, k in targets]
     for o, k, f in saved:
@@ -1476,13 +1547,231 @@ def keys_phase(smi, dev, bp32, pc, reset, counts):
     return path
 
 
+def sync_free(fn):
+    """fn run with CUDA's sync debug mode at "error": any host sync inside
+    it raises (for the launch halves, which must not wait for the card)."""
+    def inner(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return inner
+
+
+def pipeline_phase(smi, dev, bp, pc, n, batch, verdicts, r1cs_bp, reset,
+                   counts):
+    """Phase 11: the serving pipeline.  TorchEngine.msm_start /
+    msm_finish_is_identity against msm_is_identity at 1,055 and 17,538
+    points, the start with no host sync; then, with every launch count set
+    to 0, batch_verify_device_pipelined on streams of 8 batches at nb =
+    1024 and 4 at nb = 4096 (one batch of each with a t_x changed), each
+    launch half under sync debug mode, the verdicts equal to phase 4's
+    batch_verify on the same batches; times each batch, the stream
+    (verifies/s) and the one-shot batch_verify_device on the same batch
+    (min of 2); -> the path's launch counts, those of the two pipelined
+    streams alone."""
+    from zkvm_tpu_torch.constants import L
+    from zkvm_tpu_torch.kernels import batch_verify_device as bvd
+    from zkvm_tpu_torch.kernels.engine import TorchEngine
+    from zkvm_tpu_torch.oracle import edwards
+    from zkvm_tpu_torch.oracle.ristretto import RistrettoPoint
+
+    eng = TorchEngine(dev)
+    rs = np.random.default_rng(2033)
+    for k in (1055, 17538):
+        pts = r1cs_bp.G(k, 1)
+        ks = [int.from_bytes(rs.bytes(32), "little") % L for _ in pts]
+        half = pts[:k // 2]
+        pair_pts = half + [RistrettoPoint(edwards.neg(p.ep)) for p in half]
+        pair_ks = ks[:k // 2] * 2
+        for s, p, want in ((ks, pts, False), (pair_ks, pair_pts, True)):
+            eng.msm_finish_is_identity(eng.msm_start(s, p))   # warm-up
+            handle = sync_free(eng.msm_start)(s, p)
+            got = eng.msm_finish_is_identity(handle)
+            require(got == eng.msm_is_identity(s, p) == want,
+                    f"msm_start / msm_finish_is_identity at {len(p)} points "
+                    f"gave {got}, msm_is_identity and the expected {want}")
+        print(f"msm_start / msm_finish_is_identity at {k} and {2 * (k // 2)}"
+              f" points: equal to msm_is_identity (non-identity, identity), "
+              f"no host sync before the fetch", flush=True)
+
+    path = None
+    for nb, count, bad in ((1024, 8, 5), (4096, 4, 2)):
+        stream = []
+        for k in range(count):
+            proofs, _, _, transcripts, vcs, _ = batch(
+                nb, "t_x" if k == bad else None)
+            stream.append((proofs, transcripts, vcs))
+        want = [verdicts[(nb, "t_x" if k == bad else None)]
+                for k in range(count)]
+        tm = {}
+        reset()
+        with swapped([(bvd, "_launch")], sync_free(bvd._launch)):
+            got = bvd.batch_verify_device_pipelined(stream, bp, pc, n,
+                                                    engine=eng, timings=tm)
+        # the path's counts: the pipelined streams alone, not the one-shot
+        # timing runs below
+        path = [a + b for a, b in zip(path or [0] * len(counts()), counts())]
+        require(got == want, f"nb={nb}: the pipelined verdicts {got} differ "
+                             f"from phase 4's {want}")
+        one = []
+        for _ in range(2):
+            proofs, _, _, transcripts, vcs, _ = batch(nb)
+            t1 = {}
+            require(bvd.batch_verify_device(proofs, bp, pc, transcripts, vcs,
+                                            n, device=dev, timings=t1),
+                    f"nb={nb}: the one-shot batch rejected")
+            one.append(t1["host_s"] + t1["device_s"])
+        print(f"pipelined nb={nb} x {count} (batch {bad} t_x tampered): "
+              f"verdicts {got} equal to phase 4's; launch halves with no "
+              f"host sync; per batch wall_s "
+              + json.dumps([round(x, 4) for x in tm["wall_s"]])
+              + " host_s " + json.dumps([round(x, 4) for x in tm["host_s"]])
+              + " device_s " + json.dumps([round(x, 4) for x in tm["device_s"]])
+              + f"; total_s {tm['total_s']:.4f} pipelined_verifies_per_s="
+              f"{nb * count / tm['total_s']:.1f} single_batch_verifies_per_s="
+              f"{nb / min(one):.1f} (one-shot, min of 2: {min(one):.4f} s) "
+              f"[{smi}]", flush=True)
+    require(all(path[i] > 0 for i in range(4)),
+            f"the pipelined path skipped a kernel: {path}")
+    print(f"pipelined path launches: {path}", flush=True)
+    return path
+
+
+def node_phase(smi, dev, tx_bp, reset, counts):
+    """Phase 12: the node.  With every launch count set to 0: node A admits
+    the committed block's 192 issue transactions through its mempool and
+    mines them into one block; node B cold-syncs it (chain.node.sync),
+    node C over the encrypted channel (chain.p2p.encrypted_sync, both
+    handshakes with every host group operation raising); tips, utxoroots
+    and snapshots must agree, a restart from A's snapshot keep the tip, and
+    a block with a tampered transaction (its txroot made to match) or with
+    its transactions dropped be refused.  Then `python -m
+    zkvm_tpu_torch.cli node-demo --blocks 3` (tips must agree) and `verify`
+    on one committed transaction, each as a child process; -> the path's
+    launch counts."""
+    from zkvm_tpu_torch import fixture
+    from zkvm_tpu_torch.chain import BlockchainState
+    from zkvm_tpu_torch.chain.block import Block, block_id, txroot
+    from zkvm_tpu_torch.chain.node import Node, sync
+    from zkvm_tpu_torch.chain.p2p import (PeerIdentity, SecurePeer,
+                                          encrypted_sync)
+    from zkvm_tpu_torch.chain.state import BlockchainError
+    from zkvm_tpu_torch.kernels import _build
+    from zkvm_tpu_torch.kernels.engine import TorchEngine
+    from zkvm_tpu_torch.proofs.errors import ProofError
+    from zkvm_tpu_torch.vm import Tx
+    from zkvm_tpu_torch.vm.errors import VMError
+
+    _, recs = fixture.load_txs()
+    issues = recs[:192]
+    require(all(r.kind == "issue" for r in issues), "the fixture's issues")
+
+    def fresh():
+        return Node(BlockchainState.make_initial(timestamp_ms=1000), tx_bp,
+                    engine=TorchEngine(dev))
+
+    reset()
+    a = fresh()
+    secs = {}
+    t = time.perf_counter()
+    for r in issues:
+        require(a.submit_tx(Tx.from_bytes(r.wire)).id == r.txid,
+                "an admitted txid differs from the JAX verifier's")
+    secs["admit"] = time.perf_counter() - t
+    t = time.perf_counter()
+    blk = a.make_block(timestamp_ms=2000)
+    secs["mine"] = time.perf_counter() - t
+    require(len(blk.txs) == 192 and len(a.mempool) == 0
+            and a.tip.height == 2, "the mined block's shape")
+    b = fresh()
+    t = time.perf_counter()
+    rounds = sync(b, a)
+    secs["sync"] = time.perf_counter() - t
+    c = fresh()
+    id_c = PeerIdentity.generate(engine=c.engine)
+    id_a = PeerIdentity.generate(engine=a.engine)
+    t = time.perf_counter()
+    with host_group_ops_raise_in((SecurePeer, "handshake")):
+        enc_rounds = encrypted_sync(c, a, id_c, id_a)
+    secs["encrypted sync"] = time.perf_counter() - t
+    snap = a.serialize()
+    for name, x in (("B", b), ("C", c)):
+        require(block_id(x.tip) == block_id(a.tip)
+                and x.state.utreexo.state_hash() == a.state.utreexo.state_hash()
+                and x.serialize() == snap,
+                f"node {name}'s tip, utxoroot or snapshot differs from A's")
+    restarted = Node.deserialize(snap, tx_bp, engine=TorchEngine(dev))
+    require(block_id(restarted.tip) == block_id(a.tip)
+            and restarted.serialize() == snap, "the restart lost the tip")
+
+    bad_txs = [Tx.from_bytes(fixture.tampered_tx(issues[0].wire, "proof"))]
+    bad_txs += blk.txs[1:]
+    header = Block.from_bytes(blk.to_bytes()).header
+    header.txroot = txroot(bad_txs)
+    refused = []
+    for what, bad in (("a tampered transaction",
+                       Block(header, bad_txs, {})),
+                      ("its transactions dropped",
+                       Block(blk.header, [], {}))):
+        d = fresh()
+        try:
+            d.receive_block(bad)
+        except (ProofError, VMError, ValueError, BlockchainError) as e:
+            refused.append(f"{what}: {type(e).__name__}: {e}")
+        require(d.tip.height == 1, f"a block with {what} was applied")
+    require(len(refused) == 2, f"a tampered block was accepted: {refused}")
+    path = counts()
+    require(all(path[i] > 0 for i in (2, 3, 12, 17, 18)),
+            f"the node path skipped a kernel: {path}")
+    print(f"node: A admitted and mined 192 issues (height {a.tip.height}), "
+          f"B synced in {rounds} rounds, C over the encrypted channel in "
+          f"{enc_rounds} (handshakes with every host group operation "
+          f"raising); tips, utxoroots and snapshots agree; the restart keeps "
+          f"the tip; refused: {refused}", flush=True)
+    print("node passes, s and tx/s: " + json.dumps(
+        {k: [round(v, 3), round(192 / v, 1)] for k, v in secs.items()})
+        + f" [{smi}]", flush=True)
+    print(f"node path launches: {path}", flush=True)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cli = [sys.executable, "-m", "zkvm_tpu_torch.cli"]
+    t = time.perf_counter()
+    child = subprocess.run(cli + ["node-demo", "--blocks", "3"], cwd=root,
+                           capture_output=True, text=True, timeout=300)
+    require(child.returncode == 0, f"cli node-demo failed: "
+                                   f"{child.stderr[-2000:]}")
+    demo = json.loads(child.stdout.strip().splitlines()[-1])
+    require(demo["tips_agree"] and demo["height"] == 4,
+            f"cli node-demo: {demo}")
+    print(f"cli node-demo --blocks 3: {json.dumps(demo)}; "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    tx_file = str(_build.BUILD_DIR / "smoke_tx.bin")   # ignored by git
+    with open(tx_file, "wb") as f:
+        f.write(recs[192].wire)
+    t = time.perf_counter()
+    child = subprocess.run(cli + ["verify", "--tx-file", tx_file], cwd=root,
+                           capture_output=True, text=True, timeout=300)
+    require(child.returncode == 0, f"cli verify failed: "
+                                   f"{child.stderr[-2000:]}")
+    got = json.loads(child.stdout.strip().splitlines()[-1])
+    require(got["txid"] == recs[192].txid.hex(),
+            f"cli verify: the txid differs from the JAX verifier's: {got}")
+    print(f"cli verify ({recs[192].kind}): {json.dumps(got)}; "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    return path
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    if sys.argv[1:] == ["--launch-check"]:
-        return launch_check()
+    if len(sys.argv) == 3 and sys.argv[1] == "--launch-check":
+        require(sys.argv[2] in LAUNCH_CHECK, f"--launch-check takes one of "
+                                             f"{LAUNCH_CHECK}")
+        return launch_check(sys.argv[2])
     from zkvm_tpu_torch import fixture
     from zkvm_tpu_torch import micro as micro_bench
     from zkvm_tpu_torch.convert import from_jax_limbs13
@@ -2040,9 +2329,11 @@ def main():
         return [k.launches for k in kernels]
 
     reset()
+    verdicts = {}       # (nb, tamper) -> accepted, for phase 11
     for nb in (1024, 4096):
         timings = {}
         batch_verify(*batch(nb), device=dev, timings=timings)
+        verdicts[(nb, None)] = True
         wall = timings["host_s"] + timings["device_s"]
         print(f"nb={nb} accept: host_s={timings['host_s']:.3f} ("
               + ", ".join(f"{k} {timings[k]:.4f}" for k in (
@@ -2059,6 +2350,7 @@ def main():
             except VerificationError:
                 rejected = True
             require(rejected, f"nb={nb}: the batch with a bad {tamper} was accepted")
+            verdicts[(nb, tamper)] = not rejected
             print(f"nb={nb} {tamper} tampered: rejected", flush=True)
     range_path = counts()
     require(all(c > 0 for c in range_path[:4]),
@@ -2279,12 +2571,10 @@ def main():
     once = [int(k in (msm.bucket_fold, msm.small_scan)) for k in kernels]
     require(counts() == once,
             f"window_totals_small launched {counts()}, not K5s and K3 once")
-    child = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--launch-check"], capture_output=True, text=True,
-                           timeout=600)
-    require(child.returncode == 0,
-            f"the launch check failed: {child.stderr[-2000:]}")
-    after, sort_n = json.loads(child.stdout.strip().splitlines()[-1])
+    whole, whole_read = launch_counts("whole")
+    sort_n, sort_read = launch_counts("sort")
+    after = {k: v - sort_n.get(k, 0) for k, v in whole.items()
+             if v != sort_n.get(k, 0)}
     require(sum(after.values()) == 2
             and sum(v for k, v in after.items() if "small_scan_kernel" in k) == 1
             and sum(v for k, v in after.items()
@@ -2292,8 +2582,9 @@ def main():
             f"window_totals_small ran other kernels after the sort: {after}")
     print(f"window_totals_small: after the sort {sum(after.values()):g} "
           f"kernel launches a call, K5s and K3 once each (the sort alone: "
-          f"{sort_n:g} kernels and copies; traced in a child process); no "
-          f"host sync (CUDA sync debug mode 'error')", flush=True)
+          f"{sum(sort_n.values()):g} kernels and copies; traced in child "
+          f"processes, the whole call {whole_read}, the sort {sort_read}); "
+          f"no host sync (CUDA sync debug mode 'error')", flush=True)
 
     # the Cloak device half by stage
     c_static = bvd.static_gens_words(r1cs_bp, pc, padded_n, 1, dev)
@@ -2875,13 +3166,23 @@ def main():
 
     # --------------------------------------------------------- phase 10e
     keys_path = keys_phase(smi, dev, bp32, pc, reset, counts)
-    launches = [sum(c) for c in zip(range_path, r1cs_path, entry, micro_path,
-                                    engine_path, tx_path, prove_path,
-                                    r1cs_prove_path, ct_path, keys_path)]
-    require(all(c > 0 for c in launches), f"a kernel never launched: {launches}")
     mark("10e (keytree, taproot, multi-host MPC)")
 
     # ---------------------------------------------------------- phase 11
+    pipe_path = pipeline_phase(smi, dev, bp, pc, n, batch, verdicts, r1cs_bp,
+                               reset, counts)
+    mark("11 (pipelined serving path)")
+
+    # ---------------------------------------------------------- phase 12
+    node_path = node_phase(smi, dev, tx_bp, reset, counts)
+    launches = [sum(c) for c in zip(range_path, r1cs_path, entry, micro_path,
+                                    engine_path, tx_path, prove_path,
+                                    r1cs_prove_path, ct_path, keys_path,
+                                    pipe_path, node_path)]
+    require(all(c > 0 for c in launches), f"a kernel never launched: {launches}")
+    mark("12 (node, chain, CLI)")
+
+    # ---------------------------------------------------------- phase 13
     table = [  # key, name, source, replaced TPU kernel(s)
         ("K1", "ristretto_decode", "decompress.cu",
          "zkvm_tpu/kernels/pallas_decompress.py:207"),

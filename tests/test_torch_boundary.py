@@ -16,10 +16,15 @@ import torch
 import zkvm_tpu_torch
 from zkvm_tpu_torch import fixture, native
 from zkvm_tpu_torch import micro as micro_bench
+from zkvm_tpu_torch.chain import BlockchainState, Mempool
+from zkvm_tpu_torch.chain.node import Node
+from zkvm_tpu_torch.chain.p2p import SecurePeer
 from zkvm_tpu_torch.crypto import musig, starsig
 from zkvm_tpu_torch.crypto import Xprv
 from zkvm_tpu_torch.kernels import (combine, decompress, fixed_base, gather,
                                     micro, msm, msm_ct, pointwise, sort)
+from zkvm_tpu_torch.kernels.batch_verify_device import (
+    batch_verify_device_pipelined)
 from zkvm_tpu_torch.kernels.engine import TorchEngine
 from zkvm_tpu_torch.parallel.mpc_hosts import distributed_prove
 from zkvm_tpu_torch.parallel.tx_batch import fused_verify_tx_batch
@@ -30,6 +35,7 @@ from zkvm_tpu_torch.oracle.merlin import Transcript
 from zkvm_tpu_torch.proofs.r1cs import Prover, R1CSProof
 from zkvm_tpu_torch.proofs.rangeproof import RangeProof, batch_verify
 from zkvm_tpu_torch.proofs.transcript import ProofTranscript
+from zkvm_tpu_torch.utils import Config
 from zkvm_tpu_torch.vm import Instruction, Tx, TxHeader, build_tx, verify_tx
 from zkvm_tpu_torch.vm.predicate import PredicateTree
 
@@ -91,7 +97,8 @@ def test_entry_point_without_device_needs_cuda():
 def test_engine_entry_points_without_device_need_cuda():
     """The default engine is a TorchEngine on the card: without one, the
     engine and the entry points that ride it raise: the verifiers, the
-    provers, the signers and build_tx."""
+    provers, the signers, build_tx, the serving pipeline, the node, its
+    mempool and channel, and the configuration's engine."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -141,6 +148,19 @@ def test_engine_entry_points_without_device_need_cuda():
         PredicateTree(bytes(32), [b"leaf"]).predicate()
     with pytest.raises(RuntimeError, match="CUDA"):
         distributed_prove(bp, pc, b"mpc", [[5]], [[7]], n)
+    # the serving pipeline, the node and its channel, the configuration
+    with pytest.raises(RuntimeError, match="CUDA"):
+        batch_verify_device_pipelined(
+            [([RangeProof.from_bytes(recs1[0][0])], [ProofTranscript(label1)],
+              [recs1[0][1]])], BulletproofGens(n, 1), pc, n)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Mempool(bp)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Node(BlockchainState.make_initial(1000), bp)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SecurePeer.handshake(None, None, None, True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Config().apply()
 
 
 def test_kernel_wrappers_refuse_non_cuda_devices(monkeypatch, tmp_path):

@@ -27,6 +27,7 @@ and K4 over the same resident generator columns.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import time
 import weakref
@@ -53,10 +54,13 @@ from .words import (encoding_words, points_words, scalar_words, to_device,
 N_COMPACT = 9
 
 
-def _pow2_limbs(n: int, nm: int, device) -> torch.Tensor:
-    """(10, nm, 1) limbs of 2^(i mod n), the concat_z_and_2 column."""
-    return sm.ints_to_limbs([1 << (i % n) for i in range(nm)],
-                            device).unsqueeze(-1)
+@functools.lru_cache(maxsize=None)
+def _limb_constants(n: int, nm: int, device: torch.device):
+    """(1 as (10, 1, 1) limbs, the concat_z_and_2 column: (10, nm, 1) limbs
+    of 2^(i mod n)) on `device`, uploaded once (an upload syncs)."""
+    one = sm.ints_to_limbs([1], device).view(sm.NL, 1, 1)
+    pow2 = sm.ints_to_limbs([1 << (i % n) for i in range(nm)], device)
+    return one, pow2.unsqueeze(-1)
 
 
 def _synthesize_lm(params_words: torch.Tensor, n: int, m: int, lg: int):
@@ -94,7 +98,7 @@ def _synthesize_lm(params_words: torch.Tensor, n: int, m: int, lg: int):
     u_inv_sq = [pre[j] if suf[j] is None else sm.mul_lm(pre[j], suf[j])
                 for j in range(lg)]
 
-    one = sm.ints_to_limbs([1], dev).view(sm.NL, 1, 1)
+    one, pow2 = _limb_constants(n, nm, dev)
 
     def pow_expand(base, count):
         """Π_j base[j]^{bit_j(i)} for i < count, as a doubling tree."""
@@ -127,7 +131,7 @@ def _synthesize_lm(params_words: torch.Tensor, n: int, m: int, lg: int):
     g = wz_neg[:, None, :] + sm.mul_lm(wa_neg[:, None, :], s)
     # h_i = wt·z + y^-i·(wt·z²·z^(i div n)·2^(i mod n) - wt·b·s_inv_i)
     a_col = torch.repeat_interleave(sm.mul_lm(wzz[:, None, :], zpow), n, dim=1)
-    t1 = sm.mul_lm(a_col, _pow2_limbs(n, nm, dev))
+    t1 = sm.mul_lm(a_col, pow2)
     t2 = sm.mul_lm(wb_neg[:, None, :], s_inv)
     h = wz[:, None, :] + sm.mul_lm(yp, sm.add_lm(t1, t2))
     gh_col = torch.cat([sm.accumulate_lm(g, 2), sm.accumulate_lm(h, 2)], dim=1)
@@ -415,6 +419,61 @@ def require_device(device) -> torch.device:
     return dev
 
 
+class _Prepared:
+    """One batch's host half, uploaded: the device tensors (params, dyn
+    words, bbB), the upload's event (None unless it ran on a stream of its
+    own), m, lg and the host half's seconds."""
+
+    __slots__ = ("tensors", "event", "m", "lg", "host_s")
+
+    def __init__(self, tensors, event, m, lg, host_s):
+        self.tensors, self.event = tensors, event
+        self.m, self.lg, self.host_s = m, lg, host_s
+
+
+def _prepare(batch, bp_gens, pc_gens, n: int, entropy: bytes,
+             dev: torch.device, copy_stream=None,
+             timings: dict | None = None) -> _Prepared:
+    """batch_verify_device's host half: prepare_batch_inputs (its stages
+    into timings) and sum_bbB, then the upload through pinned memory, on
+    copy_stream with an event recorded after it when one is given, else on
+    the current stream.  Launches no kernel, and touches no cache of the
+    calling thread (static_gens_words), so the pipeline's worker runs it."""
+    t0 = time.perf_counter()
+    proofs, transcripts, vcs = batch
+    params, bbB_pp, dyn, m, lg = prepare_batch_inputs(
+        proofs, bp_gens, pc_gens, transcripts, vcs, n, entropy, timings)
+    with torch.cuda.stream(copy_stream):
+        tensors = [to_device(a, dev) for a in (params, dyn, sum_bbB(bbB_pp))]
+    event = None
+    if copy_stream is not None:
+        event = torch.cuda.Event()
+        event.record(copy_stream)
+    return _Prepared(tensors, event, m, lg, time.perf_counter() - t0)
+
+
+def _launch(prep: _Prepared, bp_gens, pc_gens, n: int, dev: torch.device,
+            config: MsmConfig | None, timings: dict | None = None
+            ) -> torch.Tensor:
+    """batch_verify_device's device half, on the calling thread: wait for
+    the batch's upload event (if any), then batch_msm_check on the current
+    stream; -> the verdict tensor, not fetched.  timings, when given,
+    receives msm_size and wbits."""
+    params, dyn, bbB = prep.tensors
+    if prep.event is not None:
+        stream = torch.cuda.current_stream(dev)
+        stream.wait_event(prep.event)
+        for t in prep.tensors:          # made on the copy stream, read here
+            t.record_stream(stream)
+    static = static_gens_words(bp_gens, pc_gens, n, prep.m, dev)
+    total = static.shape[2] + dyn.shape[1]
+    wbits = best_wbits(total)
+    if timings is not None:
+        timings.update(msm_size=total, wbits=wbits)
+    return batch_msm_check(static, dyn, params, bbB, n, prep.m, prep.lg,
+                           wbits, config)
+
+
 def batch_verify_device(proofs, bp_gens, pc_gens, transcripts,
                         value_commitments, n: int,
                         entropy: bytes = b"\x01" * 32, device="cuda",
@@ -423,24 +482,84 @@ def batch_verify_device(proofs, bp_gens, pc_gens, transcripts,
     """Batched verification through the device half; True iff the batch
     accepts.  Every proof must aggregate the same number m of values.  An
     invalid point encoding makes it False; malformed proofs raise
-    FormatError/ProofError.  timings, when given, receives host_s (and
-    prepare_batch_inputs' stages), device_s (upload, device chain and the
-    verdict's fetch), msm_size and wbits."""
+    FormatError/ProofError.  timings, when given, receives host_s
+    (prepare_batch_inputs' stages, also given, and the upload's staging),
+    device_s (the device chain and the verdict's fetch), msm_size and
+    wbits."""
     dev = require_device(device)
-    t_start = time.perf_counter()
-    params, bbB_pp, dyn, m, lg = prepare_batch_inputs(
-        proofs, bp_gens, pc_gens, transcripts, value_commitments, n, entropy,
-        timings)
-    bbB = sum_bbB(bbB_pp)
-    static = static_gens_words(bp_gens, pc_gens, n, m, dev)
-    total = static.shape[2] + dyn.shape[1]
-    wbits = best_wbits(total)
+    prep = _prepare((proofs, transcripts, value_commitments), bp_gens,
+                    pc_gens, n, entropy, dev, timings=timings)
     t_host = time.perf_counter()
-    flag = batch_msm_check(static, to_device(dyn, dev), to_device(params, dev),
-                           to_device(bbB, dev), n, m, lg, wbits, config)
-    verdict = bool(flag.item())
-    t_dev = time.perf_counter()
+    verdict = bool(_launch(prep, bp_gens, pc_gens, n, dev, config,
+                           timings).item())
     if timings is not None:
-        timings.update(host_s=t_host - t_start, device_s=t_dev - t_host,
-                       msm_size=total, wbits=wbits)
+        timings.update(host_s=prep.host_s,
+                       device_s=time.perf_counter() - t_host)
     return verdict
+
+
+# ------------------------------------------------------ the serving pipeline
+def batch_verify_device_pipelined(batches, bp_gens, pc_gens, n: int,
+                                  entropies=None, device=None, engine=None,
+                                  timings: dict | None = None,
+                                  config: MsmConfig | None = None
+                                  ) -> list[bool]:
+    """The serving path: a stream of batches, each verified as
+    batch_verify_device verifies it (its _prepare and _launch), with the
+    host half of batch k + 1 overlapped against batch k on the card.  On
+    the H100 it is not yet faster than a loop over batch_verify_device
+    (PERF.md §6): both halves run Python, and the GIL serialises them; it
+    is where a device half that issues without Python (ROADMAP A4, a CUDA
+    graph) can show the overlap.
+
+    batches: (proofs, transcripts, value_commitments) tuples, each batch of
+    one aggregation size; entropies: one weight entropy a batch (default a
+    counter, as the reference's).  A worker thread runs each batch's host
+    half and uploads it on a stream of its own from pinned buffers; the
+    calling thread takes batch k, hands the worker batch k + 1, waits for
+    batch k's upload event, issues its device half on its current stream
+    and fetches the verdict.  Only the calling thread launches kernels and
+    reads static_gens_words' cache.  An invalid encoding makes that batch
+    False; a malformed proof raises at its batch's turn.  The engine
+    resolves as the verifiers' (`engine`, else a TorchEngine on `device`,
+    else the card) and must be one with supports_fused_batch_verify;
+    config None takes the engine's.  timings, when given, receives
+    total_s, batches, and per batch lists host_s (the worker's host half
+    and upload), device_s (issue to fetched verdict) and wall_s (between
+    verdicts)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ..proofs.engine import resolve_engine
+    eng = resolve_engine(device, engine)
+    if not eng.supports_fused_batch_verify:
+        raise ValueError("the pipelined path needs an engine on a device "
+                         "(supports_fused_batch_verify)")
+    dev = eng.device
+    config = eng.config if config is None else config
+    if entropies is None:
+        entropies = [bytes([k % 255 + 1]) * 32 for k in range(len(batches))]
+    copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    results, host_s, device_s, wall_s = [], [], [], []
+    t0 = t_last = time.perf_counter()
+    with ThreadPoolExecutor(1) as ex:
+        def submit(k):
+            return ex.submit(_prepare, batches[k], bp_gens, pc_gens, n,
+                             entropies[k], dev, copy_stream)
+        fut = submit(0) if batches else None
+        for k in range(len(batches)):
+            prep = fut.result()
+            if k + 1 < len(batches):
+                fut = submit(k + 1)
+            t = time.perf_counter()
+            flag = _launch(prep, bp_gens, pc_gens, n, dev, config)
+            results.append(bool(flag.item()))
+            now = time.perf_counter()
+            host_s.append(prep.host_s)
+            device_s.append(now - t)
+            wall_s.append(now - t_last)
+            t_last = now
+    if timings is not None:
+        timings.update(total_s=time.perf_counter() - t0,
+                       batches=len(batches), host_s=host_s,
+                       device_s=device_s, wall_s=wall_s)
+    return results

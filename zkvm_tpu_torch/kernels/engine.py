@@ -6,7 +6,9 @@ code stays host Python over RistrettoPoints; the engine packs their
 canonical words (cached on each point, so static generators convert once)
 and the scalars, and runs them on its device.
 The verifier's calls: msm combines the window totals on the host;
-msm_is_identity runs K4 on the card and fetches one int.  The prover's
+msm_is_identity runs K4 on the card and fetches one int, split for the
+serving pipeline into msm_start (pack, upload, window totals; no host
+sync) and msm_finish_is_identity (K4 and the fetch).  The prover's
 calls, one fetch each:
   * public scalars, msm_batch(ct=False): every group's words uploaded at
     once, each group's window totals with no host sync between groups,
@@ -114,14 +116,30 @@ class TorchEngine(Engine):
 
     def msm_is_identity(self, scalars, points,
                         timings: dict | None = None) -> bool:
+        return self.msm_finish_is_identity(
+            self.msm_start(scalars, points, timings))
+
+    # ------------------------------------------------ the serving pipeline
+    def msm_start(self, scalars, points, timings: dict | None = None):
+        """msm_is_identity's launch half: pack the words on the host, then
+        totals_from_words (an upload through pinned memory and the window
+        totals), with no host sync, so the host can prepare the next check
+        while the card runs this one.  -> a handle for msm_finish_is_identity, (totals,
+        wbits), or None for no points.  timings as msm_is_identity's."""
         points = list(points)
         if not points:
-            return True
+            return None
         t0 = time.perf_counter()
         words = self.pack(scalars, points)
         if timings is not None:
             timings["pack_s"] = time.perf_counter() - t0
-        totals, wbits = self.totals_from_words(*words)
+        return self.totals_from_words(*words)
+
+    def msm_finish_is_identity(self, handle) -> bool:
+        """K4 on msm_start's window totals, then the verdict's one fetch."""
+        if handle is None:
+            return True
+        totals, wbits = handle
         return bool(horner_check(totals.unsqueeze(2).contiguous(), wbits)
                     .item())
 

@@ -41,9 +41,29 @@ _HALF = torch.tensor([1 << (w - 1) for w in W], dtype=torch.int64)
 _ODD = torch.tensor([2 if i % 2 else 1 for i in range(NL)], dtype=torch.int64)
 
 
+# module constants on each device they were used on: the upload of a host
+# tensor waits for it (a host sync), so each is made once per device, and
+# the device halves issue no copy (chip_smoke.py checks that no launch half
+# syncs before its fetch)
+_ON_DEVICE: dict = {}
+
+
+def on_device(t: torch.Tensor, device: torch.device, key=None) -> torch.Tensor:
+    """The constant t on `device`: t itself on the CPU, else its copy there,
+    uploaded at its first use and kept under `key` (t's identity unless
+    given; t must then live as long as the module)."""
+    if device.type == "cpu":
+        return t
+    key = (id(t) if key is None else key, device)
+    out = _ON_DEVICE.get(key)
+    if out is None:
+        out = _ON_DEVICE[key] = t.to(device)
+    return out
+
+
 def _col(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """(10,) table -> (10, 1, ...) broadcastable against `like`."""
-    return t.to(like.device).view((NL,) + (1,) * (like.dim() - 1))
+    return on_device(t, like.device).view((NL,) + (1,) * (like.dim() - 1))
 
 
 def carry_pass(h: torch.Tensor) -> torch.Tensor:
@@ -76,7 +96,7 @@ def mul_columns(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     f, g = torch.broadcast_tensors(f, g)
     go = g * _col(_ODD, g)
     ext = torch.cat([19 * g, g, 19 * go, go])
-    return (f.unsqueeze(1) * ext[_MUL_ROWS.to(g.device)]).sum(0)
+    return (f.unsqueeze(1) * ext[on_device(_MUL_ROWS, g.device)]).sum(0)
 
 
 def mul(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -180,7 +200,10 @@ def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
 
 def const(x: int, like: torch.Tensor) -> torch.Tensor:
     """Canonical limbs of the constant x, shaped (10, 1, ...) to broadcast."""
-    return _col(torch.tensor(int_to_limbs(x % P), dtype=torch.int64), like)
+    x %= P
+    limbs = on_device(torch.tensor(int_to_limbs(x), dtype=torch.int64),
+                      like.device, ("const", x))
+    return limbs.view((NL,) + (1,) * (like.dim() - 1))
 
 
 def int_to_limbs(x: int) -> list[int]:

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import L
+from .field import on_device
 
 RADIX = 26
 NL = 10
@@ -50,8 +51,11 @@ _DELTA_LIMBS = torch.tensor(_limbs(L - (1 << 252), NL + 1), dtype=torch.int64)
 _COL = torch.tensor([i + j for i in range(NL) for j in range(NL)])
 
 
-def _bcast(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    return t.to(like.device).view(t.shape + (1,) * (like.dim() - t.dim()))
+def _bcast(t: torch.Tensor, like: torch.Tensor, rows: int | None = None
+           ) -> torch.Tensor:
+    """t (or its first `rows` rows) on like's device, shaped to broadcast."""
+    t = on_device(t, like.device)[:rows]
+    return t.view(t.shape + (1,) * (like.dim() - t.dim()))
 
 
 def _carry_pass(x: torch.Tensor) -> torch.Tensor:
@@ -67,7 +71,7 @@ def _carry_pass(x: torch.Tensor) -> torch.Tensor:
 def _fold(x: torch.Tensor) -> torch.Tensor:
     """(K, ...) -> (10, ...) with columns >= 10 folded through R."""
     high = x[NL:].unsqueeze(1)                         # (K-10, 1, ...)
-    return x[:NL] + (_bcast(_R[:high.shape[0]], high) * high).sum(0)
+    return x[:NL] + (_bcast(_R, high, high.shape[0]) * high).sum(0)
 
 
 def _reduce(cols: torch.Tensor, rounds: int) -> torch.Tensor:
@@ -82,7 +86,7 @@ def mul_lm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     prod = (a.unsqueeze(1) * b.unsqueeze(0)).reshape((NL * NL,) + a.shape[1:])
     cols = torch.zeros((2 * NL - 1,) + a.shape[1:], dtype=torch.int64,
                        device=a.device)
-    cols.index_add_(0, _COL.to(a.device), prod)
+    cols.index_add_(0, on_device(_COL, a.device), prod)
     return _reduce(cols, _MUL_ROUNDS)
 
 

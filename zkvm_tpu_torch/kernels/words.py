@@ -117,9 +117,16 @@ def words_to_ints(words: np.ndarray) -> list[int]:
 
 
 def to_device(arr: np.ndarray, device) -> torch.Tensor:
-    """uint32 numpy array -> int32 tensor with the same bits on `device`."""
+    """uint32 numpy array -> int32 tensor with the same bits on `device`.
+    On a CUDA device the bits go through pinned memory and are copied on
+    the current stream with no host sync (PyTorch's caching host allocator
+    keeps the pinned block until the copy recorded from it has run)."""
     a = np.ascontiguousarray(arr, np.uint32).view(np.int32)
-    return torch.from_numpy(a.copy()).to(device)
+    if torch.device(device).type == "cpu":
+        return torch.from_numpy(a.copy())
+    staged = torch.empty(a.shape, dtype=torch.int32, pin_memory=True)
+    staged.numpy()[...] = a
+    return staged.to(device, non_blocking=True)
 
 
 def points_to_ints(pts: torch.Tensor) -> list[tuple[int, int, int, int]]:

@@ -103,10 +103,12 @@ _default_engine: Engine | None = None
 
 
 def get_engine() -> Engine:
+    """The default engine, made at first use from utils.config.get_config()
+    (a TorchEngine on "cuda" unless the configuration says otherwise)."""
     global _default_engine
     if _default_engine is None:
-        from ..kernels.engine import TorchEngine
-        _default_engine = TorchEngine("cuda")
+        from ..utils.config import get_config
+        _default_engine = get_config().make_engine()
     return _default_engine
 
 

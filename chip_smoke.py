@@ -206,6 +206,28 @@
    then runs `python -m zkvm_tpu_torch.cli node-demo --blocks 3` (tips
    must agree) and `verify` on one committed transaction in child
    processes;
+14. multiple devices (zkvm_tpu_torch.parallel), with every launch count
+   set to 0: a one-rank NCCL group in this process (mesh 1 x 1) times
+   its first call (NCCL's set-up), then three calls of the one-rank path
+   interleaved with three of the single-card batch_verify_device at each
+   size, and traces one call of each (device operations, device ms); then
+   runs sharded_batch_verify on phase 4's nb = 1024 and 4096 batches,
+   valid and t_x tampered, verdicts equal to phase 4's; K6 point_add (the
+   sharded paths' cross-rank fold) is timed at the two-rank tree's shape
+   (24 points), on a line of its own (the kernels line keeps phase 5's K6
+   entry); two gloo ranks on this one card (spawned children; NCCL refuses two ranks on one device) hold K6 bit for bit
+   against its plain version at the tree's shapes, then on meshes 1 x 2
+   and 2 x 1 run sharded_batch_verify on the same batches (verdicts equal
+   to phase 4's; host_s, device_s and wall beside phase 4's), time one
+   all-gather of a rank's window totals, and run verify_tx_batch(mesh=)
+   on the six coverage transactions (txids equal to the JAX verifier's,
+   tx 3's tampered proof names group 3); then CheckpointedMSM on the
+   nb = 1024 mega-check, interrupted after 5 windows and resumed to the
+   identity (the tampered batch's is not), and host_prove over
+   AllgatherTransport on the MPC fixture's 32 parties, 16 a rank
+   (commitments equal to the fixture's, the proof verifies); each rank
+   must have launched K6, K4 and K1.  Two ranks share one card's SMs: no
+   time here is a scaling number;
 13. prints each phase's seconds, the kernels line (every launch count must
    be > 0) and, last, the device line.
 
@@ -294,6 +316,22 @@ def device_ms(fn, kernels, reps):
         else:
             return ms
     return None
+
+
+def issue_profile(fn):
+    """(device operations, device ms) of one fn() call after a first, from
+    torch.profiler's trace: the kernels and copies the call puts on the
+    card and their summed time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0]
+    return (sum(e.count for e in events),
+            sum(getattr(e, "device_time_total", 0) for e in events) / 1e3)
 
 
 def radix_launches(lo_bit, hi_bit):
@@ -1547,6 +1585,40 @@ def keys_phase(smi, dev, bp32, pc, reset, counts):
     return path
 
 
+def range_batch(label, records, nb, tamper=None):
+    """nb tiled range-proof fixture records as (proofs, transcripts, value
+    commitments): phase 4's batches.  tamper "t_x" raises proof nb // 3's
+    t_x by one; "encoding" makes proof nb // 2's S non-canonical."""
+    from zkvm_tpu_torch.constants import L, P
+    from zkvm_tpu_torch.proofs.rangeproof import RangeProof
+    from zkvm_tpu_torch.proofs.transcript import ProofTranscript
+    proofs = [RangeProof.from_bytes(records[i % len(records)][0])
+              for i in range(nb)]
+    if tamper == "t_x":
+        proofs[nb // 3].t_x = (proofs[nb // 3].t_x + 1) % L
+    elif tamper == "encoding":
+        s = int.from_bytes(proofs[nb // 2].S, "little")
+        proofs[nb // 2].S = (s + P).to_bytes(32, "little")
+    vcs = [records[i % len(records)][1] for i in range(nb)]
+    return proofs, [ProofTranscript(label) for _ in range(nb)], vcs
+
+
+def path_kernels():
+    """The nineteen kernel wrappers in the kernels line's order (K1-K12,
+    K5s, K13-K18), whose launch counts each path reads."""
+    from zkvm_tpu_torch.kernels import (combine, decompress, fixed_base,
+                                        gather, micro, msm, msm_ct, pointwise,
+                                        sort)
+    return [decompress.ristretto_decode, msm.bucket_accumulate,
+            msm.bucket_fold, combine.horner_check, pointwise.seg_combine,
+            pointwise.point_add, pointwise.mul, pointwise.add,
+            sort.radix_sort, gather.gather_words,
+            msm.bucket_accumulate_words, msm.bucket_accumulate_affine,
+            msm.small_scan, micro.micro_mul, micro.micro_parts,
+            micro.micro_add_chain, micro.micro_add_chain_lanes,
+            fixed_base.fixed_base_ct, msm_ct.msm_ct]
+
+
 def sync_free(fn):
     """fn run with CUDA's sync debug mode at "error": any host sync inside
     it raises (for the launch halves, which must not wait for the card)."""
@@ -1763,6 +1835,334 @@ def node_phase(smi, dev, tx_bp, reset, counts):
     return path
 
 
+MESH_SHAPES = ((1, 2), (2, 1))     # phase 14's two-rank meshes, dp x tp
+
+
+def mesh_rank(rank, store, case, out):
+    """One of phase 14's two gloo ranks sharing the card (spawned: CUDA
+    cannot fork).  K6 against its plain version at the tree's shapes; then,
+    with every launch count set to 0, on each mesh of MESH_SHAPES:
+    sharded_batch_verify at nb = 1024 and 4096, valid and t_x tampered
+    (phase 4's batches, verdicts equal to phase 4's), each batch's host_s,
+    device_s and wall beside phase 4's, the seconds of one all-gather of a
+    rank's window totals, and verify_tx_batch on the six coverage
+    transactions (txids equal to the JAX verifier's) and with transaction
+    3's proof tampered (group 3 named); then CheckpointedMSM on the
+    nb = 1024 mega-check, interrupted after 5 windows and resumed (the
+    identity; the t_x-tampered batch's is not), and host_prove over
+    AllgatherTransport on the MPC fixture's 32 parties, 16 a rank
+    (commitments equal to the fixture's, the proof verifies).  K6, K4 and
+    K1 must have launched.  Writes the path's launch counts to
+    out/<rank>.json."""
+    import torch.distributed as dist
+
+    from zkvm_tpu_torch import fixture
+    from zkvm_tpu_torch.kernels import batch_verify_device as bvd
+    from zkvm_tpu_torch.kernels import decompress, msm, pointwise
+    from zkvm_tpu_torch.kernels import scalarmod as sm
+    from zkvm_tpu_torch.kernels.engine import TorchEngine
+    from zkvm_tpu_torch.kernels.words import (points_to_words, to_device,
+                                              words_to_points)
+    from zkvm_tpu_torch.parallel import (AllgatherTransport, CheckpointedMSM,
+                                         make_mesh, sharded_batch_verify)
+    from zkvm_tpu_torch.parallel import checkpoint as checkpoint_mod
+    from zkvm_tpu_torch.parallel.mesh import initialize_distributed
+    from zkvm_tpu_torch.parallel.mpc_hosts import host_prove
+    from zkvm_tpu_torch.parallel.tx_batch import verify_tx_batch
+    from zkvm_tpu_torch.proofs.errors import VerificationError
+    from zkvm_tpu_torch.proofs.generators import BulletproofGens, PedersenGens
+    from zkvm_tpu_torch.proofs.rangeproof import RangeProof
+    from zkvm_tpu_torch.proofs.transcript import ProofTranscript
+    from zkvm_tpu_torch.vm import Tx
+
+    smi = case["smi"]
+    initialize_distributed(store, 2, rank, backend="gloo")
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def say(line):
+        print(f"phase 14 rank {rank}: {line}", flush=True)
+
+    try:
+        label, n, _, records = fixture.load()
+        bp, pc = BulletproofGens(n, 1), PedersenGens()
+        cap, tx_recs = fixture.load_txs()
+        tx_bp = BulletproofGens(cap)
+        gens = words_to_points(bvd.static_gens_words(tx_bp, pc, cap, 1, dev))
+        for B in case["k6_shapes"]:
+            p, q = gens[:, :, :B].contiguous(), gens[:, :, B:2 * B].contiguous()
+            got, want = pointwise.point_add(p, q), pointwise.point_add_plain(p, q)
+            require(torch.equal(got, want) and torch.equal(
+                points_to_words(got), points_to_words(want)),
+                f"rank {rank}: K6 differs from its plain version at B = {B}")
+        say(f"K6 bit for bit against point_add_plain at B = "
+            f"{case['k6_shapes']}")
+
+        kernels = path_kernels()
+        for k in kernels:
+            k.launches = 0
+        coverage = tx_recs[256:]
+        txs = [Tx.from_bytes(r.wire) for r in coverage]
+        bad_txs = list(txs)
+        bad_txs[3] = Tx.from_bytes(fixture.tampered_tx(coverage[3].wire,
+                                                       "proof"))
+        for dp, tp in MESH_SHAPES:
+            mesh = make_mesh(dp, tp)
+            for nb in (1024, 4096):
+                for tamper in (None, "t_x"):
+                    proofs, transcripts, vcs = range_batch(label, records,
+                                                           nb, tamper)
+                    tm = {}
+                    got = sharded_batch_verify(mesh, proofs, bp, pc,
+                                               transcripts, vcs, n,
+                                               timings=tm)
+                    want = case["verdicts"][f"{nb}/{tamper}"]
+                    require(got == want, f"rank {rank}, mesh {dp}x{tp}, nb = "
+                                         f"{nb} ({tamper}): {got}, phase 4 "
+                                         f"{want}")
+                    say(f"mesh {dp}x{tp} nb={nb} {tamper or 'valid'}: "
+                        f"{got} as phase 4; host_s={tm['host_s']:.4f} "
+                        f"device_s={tm['device_s']:.4f} wall_s="
+                        f"{tm['host_s'] + tm['device_s']:.4f} (phase 4's one "
+                        f"card, valid: {case['walls4'][str(nb)]:.4f}) "
+                        f"msm_size={tm['msm_size']} wbits={tm['wbits']} "
+                        f"[{smi}]")
+            t = torch.zeros((4, 10, 24), dtype=torch.int32, device=dev)
+            secs = []
+            for _ in range(11):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mesh.all_gather(t)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            secs.sort()
+            say(f"mesh {dp}x{tp}: one all-gather of (4, 10, 24) window "
+                f"totals {secs[5]:.6f} s (median of 11, "
+                f"{dist.get_backend()} on {t.device} tensors) [{smi}]")
+            ids = [v.id for v in verify_tx_batch(txs, tx_bp, mesh=mesh)]
+            require(ids == [r.txid for r in coverage],
+                    f"rank {rank}: verify_tx_batch's txids on mesh {dp}x{tp}")
+            try:
+                verify_tx_batch(bad_txs, tx_bp, mesh=mesh)
+                why = None
+            except VerificationError as e:
+                why = str(e)
+            require(why is not None and "(group 3)" in why,
+                    f"rank {rank}: the tampered transaction on mesh "
+                    f"{dp}x{tp}: {why}")
+            say(f"mesh {dp}x{tp}: verify_tx_batch of the six coverage "
+                f"transactions accepts (txids as the JAX verifier's), with "
+                f"tx 3's proof tampered: {why}")
+
+        def mega_check(tamper):
+            proofs, transcripts, vcs = range_batch(label, records, 1024,
+                                                   tamper)
+            params, bbB_pp, dyn, m, lg = bvd.prepare_batch_inputs(
+                proofs, bp, pc, transcripts, vcs, n)
+            scalars = bvd.batch_msm_scalars(
+                to_device(params, dev), to_device(bvd.sum_bbB(bbB_pp), dev),
+                n, m, lg)
+            points = torch.cat([words_to_points(bvd.static_gens_words(
+                bp, pc, n, m, dev)), decompress.ristretto_decode(
+                to_device(dyn, dev))[0]], dim=2)
+            wbits = msm.best_wbits(points.shape[2])
+            return points, sm.signed_digits(scalars, wbits), wbits
+
+        points, digits, wbits = mega_check(None)
+        path = f"{out}/msm{rank}.ckpt.npz"
+        calls = []
+        real = checkpoint_mod.window_totals
+
+        class Crash(Exception):
+            """The interruption of the checkpointed run."""
+
+        def crashing(*args):
+            if len(calls) == 5:
+                raise Crash
+            calls.append(1)
+            return real(*args)
+
+        t0 = time.perf_counter()
+        with swapped([(checkpoint_mod, "window_totals")], crashing):
+            try:
+                CheckpointedMSM(path, wbits).run(points, digits)
+            except Crash:
+                pass
+        saved = sorted(CheckpointedMSM(path, wbits)._load())
+        require(saved == list(range(5)),
+                f"rank {rank}: the checkpoint holds windows {saved}")
+        require(CheckpointedMSM(path, wbits).run(points, digits)
+                .is_identity(), f"rank {rank}: the resumed checkpointed "
+                                "MSM is not the identity")
+        points, digits, wbits = mega_check("t_x")
+        require(not CheckpointedMSM(path, wbits).run(points, digits)
+                .is_identity(), f"rank {rank}: the tampered batch's "
+                                "checkpointed MSM is the identity")
+        say(f"CheckpointedMSM over {points.shape[2]} points, w = {wbits}: "
+            f"5 windows, a crash, resumed to the identity; the tampered "
+            f"batch's is not; {time.perf_counter() - t0:.3f} s")
+
+        mpc = fixture.load_keys_mpc().mpc
+        per = len(mpc.values) // 2
+        at = rank * per
+        bp32 = BulletproofGens(mpc.n, 2 * per)
+        eng = TorchEngine(dev)
+        t0 = time.perf_counter()
+        proof, vcs = host_prove(AllgatherTransport(), bp32, pc, mpc.label,
+                                mpc.values[at:at + per],
+                                mpc.blindings[at:at + per], mpc.n,
+                                [per, per], engine=eng)
+        require(vcs == mpc.commitments, f"rank {rank}: host_prove's "
+                                        "commitments differ from the fixture's")
+        if rank == 0:
+            RangeProof.from_bytes(proof.to_bytes()).verify_multiple(
+                bp32, pc, ProofTranscript(mpc.label), vcs, mpc.n, engine=eng)
+        say(f"host_prove over AllgatherTransport, 2 hosts x {per} parties, "
+            f"n = {mpc.n}: commitments equal to the fixture's"
+            + (", verify_multiple accepts" if rank == 0 else "")
+            + f"; {time.perf_counter() - t0:.3f} s")
+        path_counts = [k.launches for k in kernels]
+        require(all(path_counts[i] > 0 for i in (0, 3, 5)),
+                f"rank {rank}: the multi-device path skipped K1, K4 or K6: "
+                f"{path_counts}")
+        say(f"launches K6 {path_counts[5]} K4 {path_counts[3]} K1 "
+            f"{path_counts[0]} (all: {path_counts}); backend "
+            f"{dist.get_backend()}")
+    finally:
+        dist.destroy_process_group()
+    with open(f"{out}/{rank}.json", "w") as f:
+        json.dump(path_counts, f)
+
+
+def mesh_phase(smi, dev, bp, pc, n, batch, verdicts, walls4, reset, counts):
+    """Phase 14: multiple devices.  A one-rank NCCL group in this process
+    (mesh 1 x 1): its first call, then the one-rank path interleaved with
+    the single-card one and one call of each traced; sharded_batch_verify
+    at nb = 1024 and 4096, valid and t_x tampered, verdicts equal to phase
+    4's.  K6 at the two-rank tree's shape (events, device-only time,
+    bound), on a line of its own: the kernels line keeps phase 5's K6
+    entry.  Then two gloo ranks on this card in spawned children (mesh_rank: NCCL
+    refuses two ranks on one device).  Two ranks share one card's SMs, so
+    no time here is a scaling number.  -> the path's launch counts (this
+    process's one-rank run and both ranks')."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from zkvm_tpu_torch.kernels import batch_verify_device as bvd
+    from zkvm_tpu_torch.kernels import pointwise
+    from zkvm_tpu_torch.kernels.words import points_to_words, words_to_points
+    from zkvm_tpu_torch.parallel import make_mesh, sharded_batch_verify
+    from zkvm_tpu_torch.parallel.mesh import initialize_distributed
+
+    def one_call(nb, path):
+        proofs, _, _, transcripts, vcs, _ = batch(nb)
+        tm = {}
+        if path == "one rank":
+            require(sharded_batch_verify(mesh, proofs, bp, pc, transcripts,
+                                         vcs, n, timings=tm),
+                    f"one rank, nb = {nb}: a valid batch refused")
+        else:
+            require(bvd.batch_verify_device(proofs, bp, pc, transcripts, vcs,
+                                            n, device=dev, timings=tm),
+                    f"single card, nb = {nb}: a valid batch refused")
+        return tm["host_s"] + tm["device_s"]
+
+    tmp = tempfile.mkdtemp(prefix="zkvm_mesh_")
+    initialize_distributed(f"file://{tmp}/one", 1, 0)
+    try:
+        mesh = make_mesh(1, 1)
+        # the first collective holds NCCL's set-up; then the one-rank path
+        # against the single-card path, interleaved (a call's wall spreads
+        # with the host, which issues every launch), and one call of each
+        # traced: its launches and device time
+        print(f"phase 14 one rank: the first call (NCCL's set-up) "
+              f"{one_call(1024, 'one rank'):.4f} s [{smi}]", flush=True)
+        for nb in (1024, 4096):
+            walls = {"single card": [], "one rank": []}
+            for _ in range(3):
+                for path, ws in walls.items():
+                    ws.append(one_call(nb, path))
+            print(f"phase 14 nb={nb} walls, interleaved: " + "; ".join(
+                f"{path} " + " ".join(f"{w:.4f}" for w in ws)
+                + f" (median {sorted(ws)[1]:.4f})"
+                for path, ws in walls.items()) + f" [{smi}]", flush=True)
+        print("phase 14 nb=1024 one call traced: " + "; ".join(
+            "{} {} device operations, {:.3f} device ms".format(
+                path, *issue_profile(lambda: one_call(1024, path)))
+            for path in ("single card", "one rank")) + f" [{smi}]",
+            flush=True)
+        reset()
+        for nb in (1024, 4096):
+            for tamper in (None, "t_x"):
+                proofs, _, _, transcripts, vcs, _ = batch(nb, tamper)
+                tm = {}
+                got = sharded_batch_verify(mesh, proofs, bp, pc, transcripts,
+                                           vcs, n, timings=tm)
+                require(got == verdicts[(nb, tamper)],
+                        f"one rank, nb = {nb} ({tamper}): {got}, phase 4 "
+                        f"{verdicts[(nb, tamper)]}")
+                print(f"phase 14 one rank (NCCL, mesh 1x1) nb={nb} "
+                      f"{tamper or 'valid'}: {got} as phase 4; host_s="
+                      f"{tm['host_s']:.4f} device_s={tm['device_s']:.4f} "
+                      f"wall_s={tm['host_s'] + tm['device_s']:.4f} (phase "
+                      f"4: {walls4[nb]:.4f}) [{smi}]", flush=True)
+        one = counts()
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    require(one[0] > 0 and one[3] > 0, f"the one-rank path skipped K1 or K4: "
+                                       f"{one}")
+    print(f"phase 14 one rank: launches {one} (no K6: one rank's tree has "
+          f"no level); backend {backend}", flush=True)
+
+    # K6 at the two-rank tree's shape: one level over nw = 24 points (w =
+    # 11 at both batch sizes)
+    gens = words_to_points(bvd.static_gens_words(bp, pc, n, 1, dev))
+    p6, q6 = gens[:, :, :24].contiguous(), gens[:, :, 24:48].contiguous()
+    out_k, out_p = pointwise.point_add(p6, q6), pointwise.point_add_plain(p6,
+                                                                          q6)
+    wk, wp = points_to_words(out_k), points_to_words(out_p)
+    require(torch.equal(out_k, out_p) and torch.equal(wk, wp),
+            "K6 differs from its plain version at the tree's shape")
+    v = dict(ms=cuda_ms(lambda: pointwise.point_add(p6, q6), 50),
+             plain_ms=cuda_ms(lambda: pointwise.point_add_plain(p6, q6), 5),
+             bound=bound_ms(24 * 3 * 160, 24 * ADD))
+    dms = device_ms(lambda: pointwise.point_add(p6, q6), "point_add_kernel",
+                    50)
+    print(f"K6 at the tree's shape (24 points): kernel_ms={v['ms']:.5f} "
+          f"device_only_ms={fmt_ms(dms)} plain_ms={v['plain_ms']:.3f} "
+          f"bound_ms={v['bound'][0]:.6f} ({v['bound'][1]}) [{smi}]",
+          flush=True)
+
+    case = {"smi": smi, "k6_shapes": [24, 224],
+            "verdicts": {f"{nb}/{t}": verdicts[(nb, t)]
+                         for nb in (1024, 4096) for t in (None, "t_x")},
+            "walls4": {str(nb): w for nb, w in walls4.items()}}
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(mesh_rank, args=(f"file://{tmp}/two", case,
+                                              tmp),
+                             nprocs=2, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            require(time.perf_counter() - t0 < 600,
+                    "phase 14's two ranks did not finish in 600 s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+    ranks = []
+    for r in range(2):
+        with open(f"{tmp}/{r}.json") as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(tmp)
+    print(f"phase 14 two ranks (gloo on one card): {time.perf_counter() - t0:.1f}"
+          f" s with the spawn; two ranks share one card's SMs, so these "
+          f"times are no scaling number [{smi}]", flush=True)
+    return [a + b + c for a, b, c in zip(one, *ranks)]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip smoke: no CUDA device", file=sys.stderr)
@@ -1834,16 +2234,8 @@ def main():
 
     def batch(nb, tamper=None):
         """batch_verify's positional arguments for nb tiled fixture proofs."""
-        proofs = [RangeProof.from_bytes(records[i % len(records)][0])
-                  for i in range(nb)]
-        if tamper == "t_x":
-            proofs[nb // 3].t_x = (proofs[nb // 3].t_x + 1) % L
-        elif tamper == "encoding":
-            s = int.from_bytes(proofs[nb // 2].S, "little")
-            proofs[nb // 2].S = (s + P).to_bytes(32, "little")
-        vcs = [records[i % len(records)][1] for i in range(nb)]
-        return (proofs, bp, pc, [ProofTranscript(label) for _ in range(nb)],
-                vcs, n)
+        proofs, transcripts, vcs = range_batch(label, records, nb, tamper)
+        return (proofs, bp, pc, transcripts, vcs, n)
 
     # ---------------------------------------------------------- phase 2
     nb = 1024
@@ -2312,14 +2704,7 @@ def main():
     mark("3 (nb = 4096, K9-K12)")
 
     # ---------------------------------------------------------- phase 4
-    kernels = [decompress.ristretto_decode, msm.bucket_accumulate,
-               msm.bucket_fold, combine.horner_check, pointwise.seg_combine,
-               pointwise.point_add, pointwise.mul, pointwise.add,
-               sort.radix_sort, gather.gather_words,
-               msm.bucket_accumulate_words, msm.bucket_accumulate_affine,
-               msm.small_scan, micro.micro_mul, micro.micro_parts,
-               micro.micro_add_chain, micro.micro_add_chain_lanes,
-               fixed_base.fixed_base_ct, msm_ct.msm_ct]
+    kernels = path_kernels()
 
     def reset():
         for k in kernels:
@@ -2329,12 +2714,13 @@ def main():
         return [k.launches for k in kernels]
 
     reset()
-    verdicts = {}       # (nb, tamper) -> accepted, for phase 11
+    verdicts = {}       # (nb, tamper) -> accepted, for phases 11 and 14
+    walls4 = {}         # nb -> the valid batch's seconds, for phase 14
     for nb in (1024, 4096):
         timings = {}
         batch_verify(*batch(nb), device=dev, timings=timings)
         verdicts[(nb, None)] = True
-        wall = timings["host_s"] + timings["device_s"]
+        wall = walls4[nb] = timings["host_s"] + timings["device_s"]
         print(f"nb={nb} accept: host_s={timings['host_s']:.3f} ("
               + ", ".join(f"{k} {timings[k]:.4f}" for k in (
                   "replay_s", "weights_s", "params_s", "words_s"))
@@ -3175,12 +3561,17 @@ def main():
 
     # ---------------------------------------------------------- phase 12
     node_path = node_phase(smi, dev, tx_bp, reset, counts)
+    mark("12 (node, chain, CLI)")
+
+    # ---------------------------------------------------------- phase 14
+    mesh_path = mesh_phase(smi, dev, bp, pc, n, batch, verdicts, walls4,
+                           reset, counts)
     launches = [sum(c) for c in zip(range_path, r1cs_path, entry, micro_path,
                                     engine_path, tx_path, prove_path,
                                     r1cs_prove_path, ct_path, keys_path,
-                                    pipe_path, node_path)]
+                                    pipe_path, node_path, mesh_path)]
     require(all(c > 0 for c in launches), f"a kernel never launched: {launches}")
-    mark("12 (node, chain, CLI)")
+    mark("14 (multiple devices)")
 
     # ---------------------------------------------------------- phase 13
     table = [  # key, name, source, replaced TPU kernel(s)

@@ -26,6 +26,8 @@ from zkvm_tpu_torch.kernels import (combine, decompress, fixed_base, gather,
 from zkvm_tpu_torch.kernels.batch_verify_device import (
     batch_verify_device_pipelined)
 from zkvm_tpu_torch.kernels.engine import TorchEngine
+from zkvm_tpu_torch.parallel import make_mesh
+from zkvm_tpu_torch.parallel.mesh import initialize_distributed
 from zkvm_tpu_torch.parallel.mpc_hosts import distributed_prove
 from zkvm_tpu_torch.parallel.tx_batch import fused_verify_tx_batch
 from zkvm_tpu_torch.proofs.engine import get_engine
@@ -56,6 +58,11 @@ def _imports(path: Path):
 def test_port_imports_no_jax():
     files = sorted(ROOT.rglob("*.py")) + [ROOT.parent / "chip_smoke.py"]
     assert len(files) > 20
+    # the multi-device modules are among them
+    assert {"mesh.py", "sharded_msm.py", "batch_verify.py",
+            "fused_batch_verify.py", "checkpoint.py", "mpc_hosts.py",
+            "tx_batch.py"} <= {p.name for p in files
+                               if p.parent == ROOT / "parallel"}
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
@@ -98,7 +105,8 @@ def test_engine_entry_points_without_device_need_cuda():
     """The default engine is a TorchEngine on the card: without one, the
     engine and the entry points that ride it raise: the verifiers, the
     provers, the signers, build_tx, the serving pipeline, the node, its
-    mempool and channel, and the configuration's engine."""
+    mempool and channel, the configuration's engine, and the multi-device
+    runtime's process group and mesh."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -161,6 +169,11 @@ def test_engine_entry_points_without_device_need_cuda():
         SecurePeer.handshake(None, None, None, True)
     with pytest.raises(RuntimeError, match="CUDA"):
         Config().apply()
+    # the multi-device runtime: a rank's process group and its mesh
+    with pytest.raises(RuntimeError, match="CUDA"):
+        initialize_distributed("file:///nonexistent/store", 2, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()
 
 
 def test_kernel_wrappers_refuse_non_cuda_devices(monkeypatch, tmp_path):

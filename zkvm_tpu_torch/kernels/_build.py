@@ -175,11 +175,21 @@ def count(wrapper) -> None:
 
 
 def launch(name: str, *args) -> None:
-    """Call library `name`'s entry point on the current stream; tensors are
-    passed as their data pointers.  Raises if the launch was refused."""
-    stream = torch.cuda.current_stream().cuda_stream
+    """Call library `name`'s entry point on the current stream of its
+    tensors' device, with that device current; tensors are passed as their
+    data pointers.  A rank whose tensors live on cuda:1 while device 0 is
+    current must not queue device 1's pointers on device 0's stream.
+    Raises ValueError when the tensors sit on more than one device, and
+    RuntimeError if the launch was refused."""
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"CUDA kernel {name}: tensors on more than one "
+                         "device: " + ", ".join(sorted({str(t.device)
+                                                        for t in tensors})))
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    err = kernel(name)(*conv, stream)
+    with torch.cuda.device(dev):
+        err = kernel(name)(*conv, torch.cuda.current_stream(dev).cuda_stream)
     if err == SCRATCH_TOO_SHORT:
         raise RuntimeError(f"CUDA kernel {name}: the scratch is shorter than "
                            "the kernel's layout needs; nothing launched")

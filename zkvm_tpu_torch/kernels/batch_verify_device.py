@@ -152,22 +152,33 @@ def batch_msm_scalars(params_words, bbB_words, n: int, m: int, lg: int):
     return torch.cat([sm.decode_words_last(bbB_words), gh_col, dyn], dim=1)
 
 
-def batch_msm_check(static_words: torch.Tensor, dyn_words: torch.Tensor,
-                    params_words: torch.Tensor, bbB_words: torch.Tensor,
-                    n: int, m: int, lg: int, wbits: int,
-                    config: MsmConfig | None = None) -> torch.Tensor:
-    """The device half: static_words (4, 8, 2 + 2nm) resident generator
-    words, dyn_words (8, nb·k) raw encodings, params_words (nb, 9 + lg, 8),
-    bbB_words (2, 8) (all int32 bit patterns, on one device) -> int32 scalar
-    tensor, 1 iff the batch accepts.  config picks the bucket pipeline's
-    stages (msm.MsmConfig; None reads the environment)."""
+def batch_msm_totals(static_words: torch.Tensor, dyn_words: torch.Tensor,
+                     params_words: torch.Tensor, bbB_words: torch.Tensor,
+                     n: int, m: int, lg: int, wbits: int,
+                     config: MsmConfig | None = None):
+    """The device half up to the window totals (the JAX package's
+    _totals_core): static_words (4, 8, 2 + 2nm) resident generator words,
+    dyn_words (8, nb·k) raw encodings, params_words (nb, 9 + lg, 8),
+    bbB_words (2, 8) (all int32 bit patterns, on one device) -> (window
+    totals (4, 10, nw) int32, K1's flag: int32 scalar tensor, 1 iff every
+    encoding decoded).  config picks the bucket pipeline's stages
+    (msm.MsmConfig; None reads the environment)."""
     digits = sm.signed_digits(
         batch_msm_scalars(params_words, bbB_words, n, m, lg), wbits)
     dyn_pts, ok = ristretto_decode(dyn_words)
     points = torch.cat([words_to_points(static_words), dyn_pts], dim=2)
-    totals = window_totals(points, digits, wbits, config)
-    ident = horner_check(totals.unsqueeze(2).contiguous(), wbits)[0]
-    return ok.min() & ident
+    return window_totals(points, digits, wbits, config), ok.min()
+
+
+def batch_msm_check(static_words: torch.Tensor, dyn_words: torch.Tensor,
+                    params_words: torch.Tensor, bbB_words: torch.Tensor,
+                    n: int, m: int, lg: int, wbits: int,
+                    config: MsmConfig | None = None) -> torch.Tensor:
+    """The device half: batch_msm_totals, then K4's identity test on the
+    totals -> int32 scalar tensor, 1 iff the batch accepts."""
+    totals, ok = batch_msm_totals(static_words, dyn_words, params_words,
+                                  bbB_words, n, m, lg, wbits, config)
+    return ok & horner_check(totals.unsqueeze(2).contiguous(), wbits)[0]
 
 
 def split_msm_check(static_words: torch.Tensor, dyn_enc_words: torch.Tensor,

@@ -32,12 +32,9 @@ def add_cached(p, q):
     the kernel's operations (C = T1 (2d T2) where point_add takes
     (T1 2d) T2)."""
     X1, Y1, Z1, T1 = p
-    A = F.mul(F.sub(Y1, X1), q[0])
-    B = F.mul(F.add(Y1, X1), q[1])
-    C = F.mul(T1, q[2])
-    D = F.mul(Z1, q[3])
+    A, B, C, D = F.mul_many((F.sub(Y1, X1), F.add(Y1, X1), T1, Z1), q)
     E, Fv, G, H = F.sub(B, A), F.sub(D, C), F.add(D, C), F.add(B, A)
-    return F.mul(E, Fv), F.mul(G, H), F.mul(Fv, G), F.mul(E, H)
+    return F.mul_many((E, G, Fv, E), (Fv, H, G, H))
 
 
 def horner_fold_plain(totals: torch.Tensor, wbits: int):

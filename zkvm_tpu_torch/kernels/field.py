@@ -79,24 +79,27 @@ def carry(h: torch.Tensor) -> torch.Tensor:
     return carry_pass(carry_pass(h))
 
 
-# the row of [19 g, g, 19 g', g'] (g' = g with its odd limbs doubled)
-# that column k takes from limb i of f: g_(k-i), from g' where i is odd,
-# 19 times where k - i wraps
-_MUL_ROWS = torch.tensor([[(2 * NL if i % 2 else 0) + NL - i + k
-                           for k in range(NL)] for i in range(NL)])
+# the rows of [19 g, g, 19 g', g'] (g' = g with its odd limbs doubled)
+# that limb i of f takes, one a column k: g_(k-i), from g' where i is odd,
+# 19 times where k - i wraps.  Row i is the ten consecutive rows from
+# _MUL_FROM[i].
+_MUL_FROM = tuple((2 * NL if i % 2 else 0) + NL - i for i in range(NL))
 
 
 def mul_columns(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """mul's ten int64 columns before its carry passes (the CUDA header's
     fe_mul_cols): column k = Σ_i f_i g_(k-i) (× 19 where k - i wraps, × 2
-    where i and k - i are both odd), gathered from [19 g, g] and the same
-    with g's odd limbs doubled as one (10, 10, ...) table of factors and
-    summed over i.  The sums are exact int64 (the audit above bounds every
-    partial sum), so the order of the terms does not change a limb."""
+    where i and k - i are both odd), accumulated over i from slices of
+    [19 g, g] and the same with g's odd limbs doubled.  The sums are exact
+    int64 (the audit above bounds every partial sum), so the order of the
+    terms does not change a limb."""
     f, g = torch.broadcast_tensors(f, g)
     go = g * _col(_ODD, g)
     ext = torch.cat([19 * g, g, 19 * go, go])
-    return (f.unsqueeze(1) * ext[on_device(_MUL_ROWS, g.device)]).sum(0)
+    out = f[0] * ext[_MUL_FROM[0]:_MUL_FROM[0] + NL]
+    for i in range(1, NL):
+        out.addcmul_(f[i], ext[_MUL_FROM[i]:_MUL_FROM[i] + NL])
+    return out
 
 
 def mul(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -105,6 +108,17 @@ def mul(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 def sqr(f: torch.Tensor) -> torch.Tensor:
     return mul(f, f)
+
+
+def mul_many(fs, gs) -> tuple:
+    """(mul(f, g) for f, g in zip(fs, gs)) in one call over the operands
+    stacked on a batch axis: mul is elementwise in its batch axes, so each
+    product has the limbs it has alone, for a few tensor operations in
+    place of one set a product (the twins' CPU time)."""
+    ops = torch.broadcast_tensors(*fs, *gs)
+    k = len(fs)
+    return mul(torch.stack(ops[:k], dim=1),
+               torch.stack(ops[k:], dim=1)).unbind(1)
 
 
 def add(f, g):
@@ -245,29 +259,28 @@ def point_add(p, q):
     """Unified extended addition add-2008-hwcd-3 (a = -1, k = 2d): 9 mul."""
     X1, Y1, Z1, T1 = p
     X2, Y2, Z2, T2 = q
-    A = mul(sub(Y1, X1), sub(Y2, X2))
-    B = mul(add(Y1, X1), add(Y2, X2))
-    C = mul(mul(T1, const(EDWARDS_D2, T1)), T2)
-    D = mul(Z1, add(Z2, Z2))
+    A, B, Td, D = mul_many(
+        (sub(Y1, X1), add(Y1, X1), T1, Z1),
+        (sub(Y2, X2), add(Y2, X2), const(EDWARDS_D2, T1), add(Z2, Z2)))
+    C = mul(Td, T2)
     E = sub(B, A)
     F = sub(D, C)
     G = add(D, C)
     H = add(B, A)
-    return mul(E, F), mul(G, H), mul(F, G), mul(E, H)
+    return mul_many((E, G, F, E), (F, H, G, H))
 
 
 def point_double(p):
     """dbl-2008-hwcd with a = -1: 4 sqr + 4 mul."""
     X, Y, Z, _ = p
-    A = sqr(X)
-    B = sqr(Y)
-    Zz = sqr(Z)
+    XY = add(X, Y)
+    A, B, Zz, S = mul_many((X, Y, Z, XY), (X, Y, Z, XY))
     C = add(Zz, Zz)
-    E = sub(sub(sqr(add(X, Y)), A), B)
+    E = sub(sub(S, A), B)
     G = sub(B, A)
     F = sub(G, C)
     H = sub(neg(A), B)
-    return mul(E, F), mul(G, H), mul(F, G), mul(E, H)
+    return mul_many((E, G, F, E), (F, H, G, H))
 
 
 def identity_like(x: torch.Tensor):

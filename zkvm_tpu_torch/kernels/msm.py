@@ -577,7 +577,7 @@ def window_totals_large(points: torch.Tensor, digits: torch.Tensor,
 def small_scan_plain(keys, points, nb: int, shift: int):
     """Plain twin of K5s (csrc/small_scan.cu): its chunks, its segmented
     scan of the chunks' tails and its heads, vectorized over every (window,
-    group), with the kernel's additions in its association.  The kernel
+    group holding records), with the kernel's additions in its association.  The kernel
     stops the scan once no chunk waits for a carry; the steps after that
     change no value, so the twin runs them all."""
     nw, n = keys.shape
@@ -586,8 +586,11 @@ def small_scan_plain(keys, points, nb: int, shift: int):
         torch.zeros((F.NL, nw * nb), dtype=torch.int64, device=dev))]
     if n == 0:
         return F.pack_points(out)
-    G = SMALL_CLUSTER * SMALL_GROUPS        # chunks a window
-    C = max(1, -(-n // G))                  # records a chunk
+    C = max(1, -(-n // (SMALL_CLUSTER * SMALL_GROUPS)))  # records a chunk
+    # the kernel's chunks a window that hold records: a chunk past them
+    # reads none, and the scan feeds each chunk from lower ones only, so
+    # leaving those out changes no value
+    G = -(-n // C)
     pts = F.unpack_points(points)
     mag = keys >> (shift + 1)
     ident = F.identity_like(torch.zeros((F.NL, nw, G), dtype=torch.int64,

@@ -11,6 +11,9 @@ Transports:
 - ``ThreadLocalTransport``: N endpoints sharing barrier-synchronized slots;
   each host runs on its own thread in one process.  This is the test/demo
   fabric and exercises the exact same gather/broadcast dance a pod would.
+- ``AllgatherTransport``: one endpoint a process of a torch.distributed
+  group; payloads padded to a shared length and exchanged as uint8
+  tensors (SURVEY §2.9 P4).
 
 The per-party vector commitments (the heavy compute) run on each host's own
 engine; only a few points/scalars per party per round cross hosts.  A host
@@ -24,14 +27,18 @@ port's proofs/mpc.py.  Each host's engine (`engines=`, one a host, else
 a TorchEngine on `device`, else the default engine, the card's) runs its
 parties' commitments: V and T_1, T_2 on the fixed-base kernel K17, A and
 S on the constant-time MSM K18, the dealer's sums and share audits on
-the public route.  The reference's AllgatherTransport (payloads over
-jax.experimental.multihost_utils) is not copied: a transport over
-torch.distributed takes its place with the port's multi-device work.
+the public route.  AllgatherTransport carries the rounds between
+processes over torch.distributed, where the reference's goes over
+jax.experimental.multihost_utils.
 """
 
 from __future__ import annotations
 
 import threading
+
+import numpy as np
+import torch
+import torch.distributed as dist
 
 from ..constants import L
 from ..oracle.merlin import TranscriptRng
@@ -207,6 +214,41 @@ class ThreadLocalTransport(Transport):
         out = self._slots[0]
         self._barrier.wait()
         return out
+
+
+class AllgatherTransport(Transport):
+    """One endpoint a rank of the torch.distributed process group, a host
+    a rank: payloads padded to a shared length and exchanged as uint8
+    tensors, on the rank's current card under NCCL (which takes only CUDA
+    tensors) and on the CPU under gloo.  Every payload stays bytes:
+    nothing a peer sends is unpickled (all_gather_object would)."""
+
+    def __init__(self):
+        self.rank = dist.get_rank()
+        self.num_hosts = dist.get_world_size()
+        self.device = (torch.device("cuda", torch.cuda.current_device())
+                       if dist.get_backend() == "nccl"
+                       else torch.device("cpu"))
+
+    def _allgather(self, t: torch.Tensor) -> list[torch.Tensor]:
+        out = [torch.empty_like(t) for _ in range(self.num_hosts)]
+        dist.all_gather(out, t)
+        return out
+
+    def _allgather_bytes(self, payload: bytes) -> list[bytes]:
+        # exchange lengths first so every host pads identically
+        lens = [int(x) for x in self._allgather(torch.tensor(
+            [len(payload)], dtype=torch.int64, device=self.device))]
+        buf = np.zeros(max(lens), np.uint8)
+        buf[:len(payload)] = np.frombuffer(payload, np.uint8)
+        got = self._allgather(torch.from_numpy(buf).to(self.device))
+        return [g[:k].cpu().numpy().tobytes() for g, k in zip(got, lens)]
+
+    def gather(self, payload: bytes) -> list[bytes]:
+        return self._allgather_bytes(payload)
+
+    def broadcast(self, payload: bytes | None) -> bytes:
+        return self._allgather_bytes(payload if self.rank == 0 else b"")[0]
 
 
 # ------------------------------------------------------------------- rounds

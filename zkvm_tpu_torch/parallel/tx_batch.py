@@ -10,12 +10,14 @@ and (b) the deferred PointOps (signatures, taproot, unblind).
   kernels/batch_verify_device.py::fused_split_check (K1 decodes the
   dynamic points, then K2/K3 or the small route, and K4);
 - verify_tx_batch checks job by job through the engine: one MSM per tx's
-  R1CS job and one over all the PointOps.
+  R1CS job and one over all the PointOps; given a mesh, the same jobs go
+  to parallel/batch_verify.py::sharded_batch_verify_jobs, groups over dp
+  and each group's points over tp.
 
-The JAX package's mesh path, its spawn process pool for the replay, its
-environment switch for the device mode and its host fallback are not
-ported: the fused check always runs on the engine's device, and a device
-failure raises.
+The JAX package's spawn process pool for the replay, its environment
+switch for the device mode and its host fallback are not ported: the
+fused check always runs on the engine's device, and a device failure
+raises.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from ..vm.point_ops import PointOp
 from ..vm.point_ops import verification_job as _point_ops_job
 from ..vm.tx import Tx, VerifiedTx
 from ..vm.verifier import precompute_tx, precompute_tx_split_vec
+from .batch_verify import sharded_batch_verify_jobs
 
 
 def verify_tx_batch(
@@ -43,17 +46,28 @@ def verify_tx_batch(
     entropy: bytes | None = None,
     device=None,
     engine: Engine | None = None,
+    mesh=None,
+    wbits: int | None = None,
 ) -> list[VerifiedTx]:
-    """Verify a batch of transactions job by job on `engine` (else a
-    TorchEngine on `device`, else the default engine, the card): every
-    tx's R1CS mega-check, then one check combining every PointOp of the
-    batch.  Raises VerificationError naming the first failing job (job i <
-    len(txs) is tx i's R1CS check)."""
+    """Verify a batch of transactions: every tx's R1CS mega-check, then
+    one check combining every PointOp of the batch.  The host replays
+    each tx on `engine` (else a TorchEngine on `device`, else on the
+    mesh's device with a mesh, else the default engine, the card).
+    Without a mesh the jobs are checked one by one on that engine, and
+    VerificationError names the first failing job (job i < len(txs) is
+    tx i's R1CS check); with one, every rank of the mesh passes the same
+    txs and sharded_batch_verify_jobs checks all the jobs in one dispatch
+    at window width wbits (None: its own choice), its VerificationError
+    naming the first failing group (the same index)."""
     if not txs:
         return []
+    if mesh is not None and device is None:
+        device = mesh.device
     eng = resolve_engine(device, engine)
     if entropy is None:
         entropy = os.urandom(32)
+        if mesh is not None:    # every rank weighs the point ops alike
+            entropy = mesh.rank0_bytes(entropy)
     verified: list[VerifiedTx] = []
     jobs = []
     all_ops: list[PointOp] = []
@@ -64,6 +78,9 @@ def verify_tx_batch(
         all_ops.extend(point_ops)
     if all_ops:
         jobs.append(_point_ops_job(all_ops, entropy))
+    if mesh is not None:
+        sharded_batch_verify_jobs(mesh, jobs, wbits)
+        return verified
     for i, (scalars, points) in enumerate(jobs):
         if not eng.msm_is_identity(scalars, points):
             raise VerificationError(f"tx batch check failed (job {i})")

@@ -11,7 +11,9 @@ and debug_interpret have no counterpart: every MSM runs on the engine's
 device, and the kernels have no interpret mode.  Nor have debug_checks and
 range_bits, which nothing in the port reads (the limb check is
 kernels/field.py::debug_assert_limb_bounds, called where it is wanted).
-The mesh fields come with the port's multi-device path.  get_config()'s
+mesh_dp and mesh_tp are the axes parallel/mesh.py::make_mesh takes when
+its caller gives none (None: its defaults), from ZKVM_TPU_MESH_DP and
+ZKVM_TPU_MESH_TP.  get_config()'s
 engine is the one proofs.engine.get_engine makes when no default was set,
 and the CLI starts from Config.from_env(), its --device over the engine.
 """
@@ -28,6 +30,8 @@ ENGINES = ("cuda", "cpu")
 class Config:
     engine: str = "cuda"            # the TorchEngine's device: "cuda" | "cpu"
     msm_wbits: int | None = None    # Pippenger window width; None: best_wbits
+    mesh_dp: int | None = None      # data-parallel axis size (None = 1)
+    mesh_tp: int | None = None      # tensor-parallel axis size (None = all)
 
     @staticmethod
     def from_env() -> "Config":
@@ -35,6 +39,10 @@ class Config:
         c.engine = os.environ.get("ZKVM_TPU_ENGINE", c.engine)
         if os.environ.get("ZKVM_TPU_MSM_WBITS"):
             c.msm_wbits = int(os.environ["ZKVM_TPU_MSM_WBITS"])
+        if os.environ.get("ZKVM_TPU_MESH_DP"):
+            c.mesh_dp = int(os.environ["ZKVM_TPU_MESH_DP"])
+        if os.environ.get("ZKVM_TPU_MESH_TP"):
+            c.mesh_tp = int(os.environ["ZKVM_TPU_MESH_TP"])
         return c
 
     def make_engine(self):

@@ -2,16 +2,17 @@
 
     python3 chip_smoke.py
 
-1. prints the card's name and power limit, builds the nineteen CUDA
-   kernels (K1 ristretto_decode, K2 bucket_accumulate, K3 bucket_fold, K4
-   horner_check, K5 seg_combine, K6 point_add, K7 fe_mul, K8 fe_add, K9
-   radix_sort, K10 gather_words, K11 bucket_accumulate_words, K12
-   bucket_accumulate_affine, the small route's K5s small_scan, the
-   micro-kernels K13 micro_mul, K14 micro_parts, K15 micro_add_chain, K16
-   micro_add_chain_lanes, and the constant-time K17 fixed_base_ct and K18
-   msm_ct) from kernels/csrc, one nvcc per source in parallel (K11 and K12
-   are entries of K2's source, K13-K16 of field_micro.cu), and prints the
-   build time and each kernel function's ptxas registers and spills;
+1. prints the card's name and power limit, builds the twenty CUDA kernel
+   entries (K1 ristretto_decode, K2 bucket_accumulate, K3 bucket_fold, K4
+   horner_check, K5 seg_combine, K6 point_add and its tree entry
+   point_tree_fold, K7 fe_mul, K8 fe_add, K9 radix_sort, K10 gather_words,
+   K11 bucket_accumulate_words, K12 bucket_accumulate_affine, the small
+   route's K5s small_scan, the micro-kernels K13 micro_mul, K14
+   micro_parts, K15 micro_add_chain, K16 micro_add_chain_lanes, and the
+   constant-time K17 fixed_base_ct and K18 msm_ct) from kernels/csrc, one
+   nvcc per source in parallel (K11 and K12 are entries of K2's source,
+   K13-K16 of field_micro.cu, K6's tree entry of point_add.cu), and prints
+   the build time and each kernel function's ptxas registers and spills;
 1b. builds the native host library (zkvm_tpu_torch/native, g++
    -march=native on this machine) and prints its build time beside
    os.cpu_count(); holds every native entry and host half byte for byte
@@ -50,12 +51,13 @@
    entry point zkvm_tpu_torch.proofs.rangeproof.batch_verify at nb = 1024
    and nb = 4096: a valid batch must accept, a batch with one t_x changed
    and one with a non-canonical point encoding must reject;
-5. holds the elementwise K5 and K6 against their plain versions at the
-   shapes of the Cloak verification's small-route MSM (a scan step and a
-   fold step), K7 and K8 at 2^16 elements; holds K5s and K3 (the small
-   route, kernels/msm.py window_totals_small: K5s's bucket sums, K3's
-   one-launch fold at nb = 128) limb for limb and in canonical words
-   against their plain versions, and their totals against
+5. holds the elementwise K5 and K6 (four lanes a point) against their
+   plain versions at the shapes of the Cloak verification's small-route
+   MSM (a scan step and a fold step) and at ragged sizes (33,727 and
+   4,099: a partial last warp), K7 and K8 at 2^16 elements; holds K5s and
+   K3 (the small route, kernels/msm.py window_totals_small: K5s's bucket
+   sums, K3's one-launch fold at nb = 128) limb for limb and in canonical
+   words against their plain versions, and their totals against
    window_totals_large as points, at the Cloak MSM (1,055 points, w = 8),
    at n = 1, 17, 1,282 and 2,048, on equal scalars and with an all-zero
    window, and times them (events, device-only, plain, bound); times the
@@ -212,13 +214,19 @@
    interleaved with three of the single-card batch_verify_device at each
    size, and traces one call of each (device operations, device ms); then
    runs sharded_batch_verify on phase 4's nb = 1024 and 4096 batches,
-   valid and t_x tampered, verdicts equal to phase 4's; K6 point_add (the
-   sharded paths' cross-rank fold) is timed at the two-rank tree's shape
-   (24 points), on a line of its own (the kernels line keeps phase 5's K6
-   entry); two gloo ranks on this one card (spawned children; NCCL refuses two ranks on one device) hold K6 bit for bit
-   against its plain version at the tree's shapes, then on meshes 1 x 2
-   and 2 x 1 run sharded_batch_verify on the same batches (verdicts equal
-   to phase 4's; host_s, device_s and wall beside phase 4's), time one
+   valid and t_x tampered, verdicts equal to phase 4's, with no K6
+   launch; K6's tree entry point_tree_fold (the sharded paths' cross-rank
+   fold, one launch a fold) on stacks of R = 2, 3, 4 and 8 rows at B = 24
+   and 224, and of R = 33 and 64 (its limit) at B = 24, is held bit for
+   bit against its plain version and as points against the per-level fold
+   it replaced (level_fold), and timed beside its bound and level_fold
+   (events, device-only; at R = 2, B = 24 also level_fold's traced device
+   time); R = 65 must raise with no launch; two gloo ranks on this one card
+   (spawned children; NCCL refuses two ranks on one device) hold the tree
+   entry bit for bit against its plain version on their all-gathered
+   stack (R = 2, B = 24 and 224), then on meshes 1 x 2 and 2 x 1 run
+   sharded_batch_verify on the same batches (verdicts equal to phase 4's;
+   host_s, device_s and wall beside phase 4's), time one
    all-gather of a rank's window totals, and run verify_tx_batch(mesh=)
    on the six coverage transactions (txids equal to the JAX verifier's,
    tx 3's tampered proof names group 3); then CheckpointedMSM on the
@@ -226,8 +234,8 @@
    identity (the tampered batch's is not), and host_prove over
    AllgatherTransport on the MPC fixture's 32 parties, 16 a rank
    (commitments equal to the fixture's, the proof verifies); each rank
-   must have launched K6, K4 and K1.  Two ranks share one card's SMs: no
-   time here is a scaling number;
+   must have launched the tree entry, K4 and K1, and no K6 point_add.
+   Two ranks share one card's SMs: no time here is a scaling number;
 13. prints each phase's seconds, the kernels line (every launch count must
    be > 0) and, last, the device line.
 
@@ -1604,8 +1612,8 @@ def range_batch(label, records, nb, tamper=None):
 
 
 def path_kernels():
-    """The nineteen kernel wrappers in the kernels line's order (K1-K12,
-    K5s, K13-K18), whose launch counts each path reads."""
+    """The twenty kernel wrappers in the kernels line's order (K1-K12,
+    K5s, K13-K18, K6's tree entry), whose launch counts each path reads."""
     from zkvm_tpu_torch.kernels import (combine, decompress, fixed_base,
                                         gather, micro, msm, msm_ct, pointwise,
                                         sort)
@@ -1616,7 +1624,45 @@ def path_kernels():
             msm.bucket_accumulate_words, msm.bucket_accumulate_affine,
             msm.small_scan, micro.micro_mul, micro.micro_parts,
             micro.micro_add_chain, micro.micro_add_chain_lanes,
-            fixed_base.fixed_base_ct, msm_ct.msm_ct]
+            fixed_base.fixed_base_ct, msm_ct.msm_ct,
+            pointwise.point_tree_fold]
+
+
+def level_fold(stack):
+    """The cross-rank fold that the tree entry replaced, its yardstick:
+    (R, 4, 10, B) padded with identities to a power of two by torch.cat,
+    then per level two permuted copies, one K6 point_add launch over half
+    the rows, and a final copy."""
+    from zkvm_tpu_torch.kernels import field as F
+    from zkvm_tpu_torch.kernels import pointwise
+    R, B = stack.shape[0], stack.shape[3]
+    size = 1 << (R - 1).bit_length()
+    if size != R:
+        pad = pointwise.identity_points((size - R, B), stack.device)
+        stack = torch.cat([stack, pad.permute(2, 0, 1, 3)])
+    while stack.shape[0] > 1:
+        h = stack.shape[0] // 2
+
+        def lay(v):          # (h, 4, 10, B) -> (4, 10, h · B)
+            return v.permute(1, 2, 0, 3).reshape(4, F.NL, h * B)
+        s = pointwise.point_add(lay(stack[:h]).contiguous(),
+                                lay(stack[h:]).contiguous())
+        stack = s.reshape(4, F.NL, h, B).permute(2, 0, 1, 3)
+    return stack[0].contiguous()
+
+
+def tree_fold_check(stack, what):
+    """K6's tree entry on `stack` bit for bit against its twin, also in
+    canonical words, and equal as points to level_fold's sum."""
+    from zkvm_tpu_torch.kernels import pointwise
+    from zkvm_tpu_torch.kernels.words import points_to_words
+    got = pointwise.point_tree_fold(stack)
+    want = pointwise.point_tree_fold_plain(stack)
+    require(torch.equal(got, want) and torch.equal(points_to_words(got),
+                                                   points_to_words(want)),
+            f"{what}: point_tree_fold differs from its plain version")
+    require(same_points(got, level_fold(stack)),
+            f"{what}: point_tree_fold differs from the per-level fold")
 
 
 def sync_free(fn):
@@ -1840,7 +1886,8 @@ MESH_SHAPES = ((1, 2), (2, 1))     # phase 14's two-rank meshes, dp x tp
 
 def mesh_rank(rank, store, case, out):
     """One of phase 14's two gloo ranks sharing the card (spawned: CUDA
-    cannot fork).  K6 against its plain version at the tree's shapes; then,
+    cannot fork).  K6's tree entry on the two ranks' all-gathered stack at
+    B = case["tree_shapes"] against its plain version; then,
     with every launch count set to 0, on each mesh of MESH_SHAPES:
     sharded_batch_verify at nb = 1024 and 4096, valid and t_x tampered
     (phase 4's batches, verdicts equal to phase 4's), each batch's host_s,
@@ -1851,8 +1898,9 @@ def mesh_rank(rank, store, case, out):
     nb = 1024 mega-check, interrupted after 5 windows and resumed (the
     identity; the t_x-tampered batch's is not), and host_prove over
     AllgatherTransport on the MPC fixture's 32 parties, 16 a rank
-    (commitments equal to the fixture's, the proof verifies).  K6, K4 and
-    K1 must have launched.  Writes the path's launch counts to
+    (commitments equal to the fixture's, the proof verifies).  The tree
+    entry, K4 and K1 must have launched, and K6 point_add not (the fold is
+    one tree launch).  Writes the path's launch counts to
     out/<rank>.json."""
     import torch.distributed as dist
 
@@ -1861,8 +1909,7 @@ def mesh_rank(rank, store, case, out):
     from zkvm_tpu_torch.kernels import decompress, msm, pointwise
     from zkvm_tpu_torch.kernels import scalarmod as sm
     from zkvm_tpu_torch.kernels.engine import TorchEngine
-    from zkvm_tpu_torch.kernels.words import (points_to_words, to_device,
-                                              words_to_points)
+    from zkvm_tpu_torch.kernels.words import to_device, words_to_points
     from zkvm_tpu_torch.parallel import (AllgatherTransport, CheckpointedMSM,
                                          make_mesh, sharded_batch_verify)
     from zkvm_tpu_torch.parallel import checkpoint as checkpoint_mod
@@ -1888,16 +1935,16 @@ def mesh_rank(rank, store, case, out):
         cap, tx_recs = fixture.load_txs()
         tx_bp = BulletproofGens(cap)
         gens = words_to_points(bvd.static_gens_words(tx_bp, pc, cap, 1, dev))
-        for B in case["k6_shapes"]:
-            p, q = gens[:, :, :B].contiguous(), gens[:, :, B:2 * B].contiguous()
-            got, want = pointwise.point_add(p, q), pointwise.point_add_plain(p, q)
-            require(torch.equal(got, want) and torch.equal(
-                points_to_words(got), points_to_words(want)),
-                f"rank {rank}: K6 differs from its plain version at B = {B}")
-        say(f"K6 bit for bit against point_add_plain at B = "
-            f"{case['k6_shapes']}")
+        mesh = make_mesh(1, 2)
+        for B in case["tree_shapes"]:
+            stack = mesh.all_gather(gens[:, :, rank * B:(rank + 1) * B])
+            tree_fold_check(stack, f"rank {rank}, R = 2, B = {B}")
+        say(f"K6's tree entry on the ranks' stack bit for bit against "
+            f"point_tree_fold_plain, as points equal to the per-level fold, "
+            f"at B = {case['tree_shapes']}")
 
         kernels = path_kernels()
+        tree_i = kernels.index(pointwise.point_tree_fold)
         for k in kernels:
             k.launches = 0
         coverage = tx_recs[256:]
@@ -2021,29 +2068,38 @@ def mesh_rank(rank, store, case, out):
             + (", verify_multiple accepts" if rank == 0 else "")
             + f"; {time.perf_counter() - t0:.3f} s")
         path_counts = [k.launches for k in kernels]
-        require(all(path_counts[i] > 0 for i in (0, 3, 5)),
-                f"rank {rank}: the multi-device path skipped K1, K4 or K6: "
-                f"{path_counts}")
-        say(f"launches K6 {path_counts[5]} K4 {path_counts[3]} K1 "
-            f"{path_counts[0]} (all: {path_counts}); backend "
-            f"{dist.get_backend()}")
+        require(all(path_counts[i] > 0 for i in (0, 3, tree_i)),
+                f"rank {rank}: the multi-device path skipped K1, K4 or K6's "
+                f"tree entry: {path_counts}")
+        require(path_counts[5] == 0, f"rank {rank}: the multi-device path "
+                                     f"launched K6 point_add: {path_counts}")
+        say(f"launches K6 tree {path_counts[tree_i]} (point_add "
+            f"{path_counts[5]}) K4 {path_counts[3]} K1 {path_counts[0]} "
+            f"(all: {path_counts}); backend {dist.get_backend()}")
     finally:
         dist.destroy_process_group()
     with open(f"{out}/{rank}.json", "w") as f:
         json.dump(path_counts, f)
 
 
-def mesh_phase(smi, dev, bp, pc, n, batch, verdicts, walls4, reset, counts):
+def mesh_phase(smi, dev, bp, pc, n, batch, verdicts, walls4, tree_points,
+               reset, counts):
     """Phase 14: multiple devices.  A one-rank NCCL group in this process
     (mesh 1 x 1): its first call, then the one-rank path interleaved with
     the single-card one and one call of each traced; sharded_batch_verify
     at nb = 1024 and 4096, valid and t_x tampered, verdicts equal to phase
-    4's.  K6 at the two-rank tree's shape (events, device-only time,
-    bound), on a line of its own: the kernels line keeps phase 5's K6
-    entry.  Then two gloo ranks on this card in spawned children (mesh_rank: NCCL
-    refuses two ranks on one device).  Two ranks share one card's SMs, so
-    no time here is a scaling number.  -> the path's launch counts (this
-    process's one-rank run and both ranks')."""
+    4's, with no K6 launch (one rank's tree has no level).  K6's tree entry
+    on stacks of R = 2, 3, 4 and 8 rows of tree_points ((4, 10, >= 1,792)
+    points) at B = 24 and 224, and of R = 33 and 64 (TREE_MAX_ROWS) at B =
+    24: tree_fold_check, then events, device-only ms, plain ms, bound and
+    level_fold's events; at R = 2, B = 24 (two ranks' window totals at w =
+    11) also one traced call of level_fold; R = 65 must raise with no
+    launch.  Then two gloo
+    ranks on this card in spawned children (mesh_rank: NCCL refuses two
+    ranks on one device).  Two ranks share one card's SMs, so no time here
+    is a scaling number.  -> (the path's launch counts (this process's
+    one-rank run and both ranks'), the tree entry's kernels-line entry at
+    R = 2, B = 24)."""
     import shutil
     import tempfile
 
@@ -2052,7 +2108,7 @@ def mesh_phase(smi, dev, bp, pc, n, batch, verdicts, walls4, reset, counts):
 
     from zkvm_tpu_torch.kernels import batch_verify_device as bvd
     from zkvm_tpu_torch.kernels import pointwise
-    from zkvm_tpu_torch.kernels.words import points_to_words, words_to_points
+    from zkvm_tpu_torch.kernels.words import points_to_words
     from zkvm_tpu_torch.parallel import make_mesh, sharded_batch_verify
     from zkvm_tpu_torch.parallel.mesh import initialize_distributed
 
@@ -2112,31 +2168,63 @@ def mesh_phase(smi, dev, bp, pc, n, batch, verdicts, walls4, reset, counts):
         backend = dist.get_backend()
     finally:
         dist.destroy_process_group()
+    tree_i = path_kernels().index(pointwise.point_tree_fold)
     require(one[0] > 0 and one[3] > 0, f"the one-rank path skipped K1 or K4: "
                                        f"{one}")
+    require(one[5] == one[tree_i] == 0, f"the one-rank path launched K6: "
+                                        f"{one}")
     print(f"phase 14 one rank: launches {one} (no K6: one rank's tree has "
           f"no level); backend {backend}", flush=True)
 
-    # K6 at the two-rank tree's shape: one level over nw = 24 points (w =
-    # 11 at both batch sizes)
-    gens = words_to_points(bvd.static_gens_words(bp, pc, n, 1, dev))
-    p6, q6 = gens[:, :, :24].contiguous(), gens[:, :, 24:48].contiguous()
-    out_k, out_p = pointwise.point_add(p6, q6), pointwise.point_add_plain(p6,
-                                                                          q6)
-    wk, wp = points_to_words(out_k), points_to_words(out_p)
-    require(torch.equal(out_k, out_p) and torch.equal(wk, wp),
-            "K6 differs from its plain version at the tree's shape")
-    v = dict(ms=cuda_ms(lambda: pointwise.point_add(p6, q6), 50),
-             plain_ms=cuda_ms(lambda: pointwise.point_add_plain(p6, q6), 5),
-             bound=bound_ms(24 * 3 * 160, 24 * ADD))
-    dms = device_ms(lambda: pointwise.point_add(p6, q6), "point_add_kernel",
-                    50)
-    print(f"K6 at the tree's shape (24 points): kernel_ms={v['ms']:.5f} "
-          f"device_only_ms={fmt_ms(dms)} plain_ms={v['plain_ms']:.3f} "
-          f"bound_ms={v['bound'][0]:.6f} ({v['bound'][1]}) [{smi}]",
-          flush=True)
+    # K6's tree entry: one launch folds R rows of B points (B = 24: a
+    # rank's window totals at w = 11 at both batch sizes; 224: a group's
+    # totals of the coverage transactions); R = 33 and 64 (TREE_MAX_ROWS)
+    # fill a block with one column's pairs
+    entry, t_tree = None, time.perf_counter()
+    shapes = [(R, B) for B in (24, 224) for R in (2, 3, 4, 8)]
+    for R, B in shapes + [(33, 24), (pointwise.TREE_MAX_ROWS, 24)]:
+        stack = tree_points[:, :, :R * B].reshape(4, 10, R, B).permute(
+            2, 0, 1, 3).contiguous()
+        tree_fold_check(stack, f"R = {R}, B = {B}")
+        out_k = pointwise.point_tree_fold(stack)
+        out_p = pointwise.point_tree_fold_plain(stack)
+        v = dict(err=max_abs_err(points_to_words(out_k),
+                                 points_to_words(out_p)),
+                 ms=cuda_ms(lambda: pointwise.point_tree_fold(stack), 50),
+                 plain_ms=cuda_ms(
+                     lambda: pointwise.point_tree_fold_plain(stack), 5),
+                 bound=bound_ms((R + 1) * B * 160, (R - 1) * B * ADD))
+        dms = device_ms(lambda: pointwise.point_tree_fold(stack),
+                        "point_tree_fold_kernel", 20)
+        line = (f"K6 tree entry R={R} B={B}: one launch, kernel_ms="
+                f"{v['ms']:.5f} device_only_ms={fmt_ms(dms)} plain_ms="
+                f"{v['plain_ms']:.3f} bound_ms={v['bound'][0]:.7f} "
+                f"({v['bound'][1]}; {(R - 1).bit_length()} dependent "
+                f"additions) max_abs_err={v['err']}; the per-level fold: "
+                f"kernel_ms={cuda_ms(lambda: level_fold(stack), 50):.5f}")
+        if (R, B) == (2, 24):
+            entry = v
+            ops, lev_dms = issue_profile(lambda: level_fold(stack))
+            line += (f", one call traced {ops} device operations, "
+                     f"{lev_dms:.5f} device ms")
+        print(f"{line} [{smi}]", flush=True)
+    # past TREE_MAX_ROWS rows the entry raises and launches nothing
+    before = pointwise.point_tree_fold.launches
+    try:
+        pointwise.point_tree_fold(torch.zeros(
+            (pointwise.TREE_MAX_ROWS + 1, 4, 10, 24), dtype=torch.int32,
+            device=dev))
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused and pointwise.point_tree_fold.launches == before,
+            f"point_tree_fold took {pointwise.TREE_MAX_ROWS + 1} rows")
+    print(f"K6 tree entry refuses {pointwise.TREE_MAX_ROWS + 1} rows, no "
+          f"launch", flush=True)
+    print(f"phase 14 tree entry checks and timings: "
+          f"{time.perf_counter() - t_tree:.1f} s", flush=True)
 
-    case = {"smi": smi, "k6_shapes": [24, 224],
+    case = {"smi": smi, "tree_shapes": [24, 224],
             "verdicts": {f"{nb}/{t}": verdicts[(nb, t)]
                          for nb in (1024, 4096) for t in (None, "t_x")},
             "walls4": {str(nb): w for nb, w in walls4.items()}}
@@ -2160,7 +2248,7 @@ def mesh_phase(smi, dev, bp, pc, n, batch, verdicts, walls4, reset, counts):
     print(f"phase 14 two ranks (gloo on one card): {time.perf_counter() - t0:.1f}"
           f" s with the spawn; two ranks share one card's SMs, so these "
           f"times are no scaling number [{smi}]", flush=True)
-    return [a + b + c for a, b, c in zip(one, *ranks)]
+    return [a + b + c for a, b, c in zip(one, *ranks)], entry
 
 
 def main():
@@ -2826,6 +2914,25 @@ def main():
               f"{'not measured' if dms is None else f'{dms:.5f}'} "
               f"plain_ms={v['plain_ms']:.2f} bound_ms={v['bound'][0]:.5f} "
               f"({v['bound'][1]}) max_abs_err={v['err']}", flush=True)
+    # K5 and K6 at ragged sizes: four lanes a point, and 4 B no multiple
+    # of a warp, so the last warp's tail lanes add a clamped point
+    ragged = {
+        "K5": (p5[..., :-1].contiguous(), q5[..., :-1].contiguous(),
+               f5[:-1].contiguous()),
+        "K6": (flat(runs[..., :2 * cnb])[..., :4099].contiguous(),
+               flat(runs[..., 2 * cnb:4 * cnb])[..., :4099].contiguous())}
+    for k, args in ragged.items():
+        kern, plain = ((pointwise.seg_combine, pointwise.seg_combine_plain)
+                       if k == "K5" else
+                       (pointwise.point_add, pointwise.point_add_plain))
+        out_k, out_p = kern(*args), plain(*args)
+        require(torch.equal(out_k, out_p) and torch.equal(
+            points_to_words(out_k), points_to_words(out_p)),
+            f"{k} differs from its plain version at {out_k.shape[-1]} "
+            f"elements")
+        print(f"{k}: elements={out_k.shape[-1]} (4 B = {4 * out_k.shape[-1]}"
+              f", {4 * out_k.shape[-1] % 32} lanes in the last warp) bit for "
+              f"bit against its plain version", flush=True)
 
     # K5s and K3, the small route, bit for bit against their plain versions
     def sorted_small(dg):
@@ -3564,8 +3671,11 @@ def main():
     mark("12 (node, chain, CLI)")
 
     # ---------------------------------------------------------- phase 14
-    mesh_path = mesh_phase(smi, dev, bp, pc, n, batch, verdicts, walls4,
-                           reset, counts)
+    tree_points = words_to_points(bvd.static_gens_words(r1cs_bp, pc, 1024, 1,
+                                                        dev))
+    mesh_path, results["K6t"] = mesh_phase(smi, dev, bp, pc, n, batch,
+                                           verdicts, walls4, tree_points,
+                                           reset, counts)
     launches = [sum(c) for c in zip(range_path, r1cs_path, entry, micro_path,
                                     engine_path, tx_path, prove_path,
                                     r1cs_prove_path, ct_path, keys_path,
@@ -3620,6 +3730,12 @@ def main():
         ("K18", "msm_ct", "msm_ct.cu",
          "zkvm_tpu/native/edwards255.cpp:287 (ed_msm with ct = 1) and "
          ":413-460 (ed_bit_commit); no Pallas kernel"),
+        ("K6t", "point_tree_fold", "point_add.cu",
+         "zkvm_tpu/kernels/pallas_field.py:155 (_point_add_kernel's formula,"
+         " pallas_msm._add_formula, in the levels of "
+         "zkvm_tpu/parallel/sharded_msm.py:183-190) and "
+         "zkvm_tpu/parallel/sharded_msm.py:25-48 (_combine_gathered: the "
+         "identity pad and zkvm_tpu/kernels/point.py:94-102 tree_reduce)"),
     ]
     line = {"kernels": [
         {"name": name, "route": "cuda",

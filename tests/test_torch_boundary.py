@@ -212,6 +212,10 @@ def test_kernel_wrappers_refuse_non_cuda_devices(monkeypatch, tmp_path):
                                                     device="meta"))
     with pytest.raises(ValueError, match="CUDA"):
         pointwise.point_add(pts, pts)
+    for rows in (1, 2, 5):
+        with pytest.raises(ValueError, match="CUDA"):
+            pointwise.point_tree_fold(torch.empty(
+                (rows, 4, 10, 24), dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError, match="CUDA"):
         pointwise.mul(fe, fe)
     with pytest.raises(ValueError, match="CUDA"):

@@ -3,15 +3,20 @@ sharded_msm, batch_verify, fused_batch_verify, checkpoint, mpc_hosts'
 AllgatherTransport and verify_tx_batch's mesh path) on the CPU, held
 against the JAX package and its oracle.
 
-Item 1, in process: make_mesh's shapes and errors; the K6 tree that sums
-gathered window totals (sharded_msm.tree_fold, combine_gathered's fold) at
-R = 1, 2, 3 and 5 against the oracle's sum; jobs_to_arrays and pad_groups
+Item 1, in process: make_mesh's shapes and errors; the refusal of the K6
+tree entry (sharded_msm.tree_fold, combine_gathered's fold) past
+TREE_MAX_ROWS rows; jobs_to_arrays and pad_groups
 against the JAX package's, as points and digits; CheckpointedMSM
 interrupted after 5 windows and resumed at n = 64 against the oracle's
 multiscalar_mul; Config's mesh fields from the environment, and
 make_mesh's axes from them; and
 _build.launch under a fake card: the stream it asks for is its tensors'
 device's, and mixed devices raise.
+
+Then K6's tree entry (point_tree_fold_plain on the CPU) at R = 1, 2, 3,
+4, 5 and 8, one case each, against the reference's association
+(zkvm_tpu.kernels.point.tree_reduce over the identity-padded stack, as
+integers mod p) and the oracle's sum.
 
 Item 2, four gloo ranks (torch.multiprocessing, spawn; a file store
 under tmp_path, so that parallel test workers share no port), their mesh
@@ -48,6 +53,8 @@ from zkvm_tpu_torch import fixture
 from zkvm_tpu_torch.constants import L
 from zkvm_tpu_torch.kernels import _build
 from zkvm_tpu_torch.kernels import scalarmod as sm
+from zkvm_tpu_torch.kernels.pointwise import (TREE_MAX_ROWS,
+                                              point_tree_fold_plain)
 from zkvm_tpu_torch.kernels.words import points_to_ints, points_words
 from zkvm_tpu_torch.kernels.words import to_device, words_to_points
 from zkvm_tpu_torch.oracle import edwards
@@ -125,18 +132,11 @@ def test_mesh_tree_jobs_checkpoint_config_and_launch(tmp_path, monkeypatch):
         with pytest.raises(ValueError, match="mesh"):
             make_mesh(dp, tp, device="cpu")
 
-    # the K6 tree over R stacked totals (R = 1 through combine_gathered)
-    pts = _points(15, 3)
-    stacked = _limbs(pts).reshape(4, 10, 5, 3).permute(2, 0, 1, 3)
-    for R in (1, 2, 3, 5):
-        fold = (combine_gathered(mesh, stacked[0]) if R == 1
-                else tree_fold(stacked[:R].contiguous()))
-        got = points_to_ints(fold)
-        for w in range(3):
-            want = edwards.IDENTITY
-            for r in range(R):
-                want = edwards.add(want, pts[r * 3 + w].ep)
-            assert _same(got[w], want), (R, w)
+    # the K6 tree entry takes at most TREE_MAX_ROWS rows, on every device
+    # (its sums are the parametrised cases below)
+    with pytest.raises(ValueError, match="rows"):
+        tree_fold(torch.zeros((TREE_MAX_ROWS + 1, 4, 10, 1),
+                              dtype=torch.int32))
 
     # jobs_to_arrays and pad_groups against the JAX package's
     r = random.Random(1)
@@ -362,6 +362,49 @@ def _rank(rank: int, init: str, inboxes, out: str) -> None:
         dist.destroy_process_group()
     with open(f"{out}/{rank}.json", "w") as f:
         json.dump(res, f)
+
+
+@pytest.mark.parametrize("R", [1, 2, 3, 4, 5, 8])
+def test_tree_fold_matches_the_reference_tree(R, monkeypatch):
+    """K6's tree entry (sharded_msm.tree_fold; point_tree_fold_plain on the
+    CPU; R = 1 through combine_gathered) over R stacked (4, 10, 3) totals:
+    equal mod p to the reference's tree_reduce over the identity-padded
+    stack, and to the oracle's sum as points.  tree_reduce runs on object
+    arrays with its add taken from the reference's oracle, whose formula
+    jp.add computes term for term (the Pallas formula is held against the
+    port's in test_torch_pointwise.py): the association is the reference's
+    code, without the XLA compiles of its limbs at three shapes."""
+    from zkvm_tpu.kernels import point as jp
+    from zkvm_tpu.oracle import edwards as jedwards
+
+    def oracle_add(p, q):
+        out = [np.empty(p.x.shape, dtype=object) for _ in range(4)]
+        for at in np.ndindex(p.x.shape):
+            s = jedwards.add(tuple(c[at] for c in p), tuple(c[at] for c in q))
+            for o, v in zip(out, s):
+                o[at] = v
+        return jp.PointBatch(*out)
+
+    pts = _points(3 * R, 3)
+    stacked = _limbs(pts).reshape(4, 10, R, 3).permute(2, 0, 1, 3)
+    fold = (combine_gathered(make_mesh(device="cpu"), stacked[0]) if R == 1
+            else tree_fold(stacked.contiguous()))
+    assert torch.equal(fold, point_tree_fold_plain(stacked))
+    got = points_to_ints(fold)
+    size = 1 << (R - 1).bit_length()
+    rows = [p.ep for p in pts] + [jedwards.IDENTITY] * (3 * (size - R))
+    coords = [np.empty((size, 3), dtype=object) for _ in range(4)]
+    for i, ep in enumerate(rows):
+        for c, v in zip(coords, ep):
+            c[divmod(i, 3)] = v
+    monkeypatch.setattr(jp, "add", oracle_add)
+    ref = jp.tree_reduce(jp.PointBatch(*coords))
+    assert got == list(zip(*(c[0] for c in ref)))
+    for w in range(3):
+        want = edwards.IDENTITY
+        for r in range(R):
+            want = edwards.add(want, pts[r * 3 + w].ep)
+        assert _same(got[w], want), w
 
 
 def test_four_gloo_ranks_against_the_jax_package(tmp_path, monkeypatch):

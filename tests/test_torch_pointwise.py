@@ -1,7 +1,10 @@
 """The port's elementwise kernels K5-K8 (zkvm_tpu_torch.kernels.pointwise, by
 their plain versions on the CPU) against the JAX package's Pallas kernels
 in interpret mode — pallas_msm.seg_combine_lm and pallas_field.mul, add
-and point_add — on the same inputs, compared as integers mod p."""
+and point_add — on the same inputs, compared as integers mod p; K5 and K6
+also at ragged batch sizes."""
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -42,26 +45,43 @@ def _jax_ints(coords):
     return list(zip(*(lb.limbs_to_field_ints(np.asarray(c).T) for c in coords)))
 
 
-@pytest.mark.parametrize("op", ["point_add", "seg_combine"])
-def test_point_kernels_match_pallas(op):
+@functools.lru_cache(maxsize=None)
+def _pallas_run(op):
+    """op's JAX kernel, in interpret mode, on two tiles (2 x 512 lanes) of
+    seeded inputs: -> p, q, flags (seg_combine) or None, and the outputs
+    as ints.  One run serves every batch size of the op (a prefix), since
+    the kernel treats its lanes independently."""
     rs = np.random.default_rng(21 if op == "point_add" else 22)
-    p, q = _points(rs, B), _points(rs, B)[::-1]
+    p, q = _points(rs, 2 * B), _points(rs, 2 * B)[::-1]
     if op == "point_add":
-        want = _jax_ints(pf.point_add(tuple(pm.pack_points_lm(p)),
-                                      tuple(pm.pack_points_lm(q)),
-                                      interpret=True))
-        got = pointwise.point_add(_port_points(p), _port_points(q))
+        return p, q, None, _jax_ints(pf.point_add(
+            tuple(pm.pack_points_lm(p)), tuple(pm.pack_points_lm(q)),
+            interpret=True))
+    flags = (rs.random(2 * B) < 0.3).astype(np.int32)
+    want = _jax_ints(pm.seg_combine_lm(
+        pm.pack_points_lm(p), pm.pack_points_lm(q),
+        jnp.asarray(flags[None]), interpret=True))
+    for i in np.flatnonzero(flags):
+        assert want[i] == tuple(c % P for c in q[i])
+    return p, q, flags, want
+
+
+# B = 512 (one tile) and ragged batches (24: under a tile; 517: a partial
+# second tile, and a partial warp of four-lane groups on the card)
+POINT_CASES = [pytest.param(op, n, id=op if n == B else f"{op}-{n}")
+               for op in ("point_add", "seg_combine") for n in (B, 24, 517)]
+
+
+@pytest.mark.parametrize("op, n", POINT_CASES)
+def test_point_kernels_match_pallas(op, n):
+    p, q, flags, want = _pallas_run(op)
+    if op == "point_add":
+        got = pointwise.point_add(_port_points(p[:n]), _port_points(q[:n]))
     else:
-        flags = (rs.random(B) < 0.3).astype(np.int32)
-        want = _jax_ints(pm.seg_combine_lm(
-            pm.pack_points_lm(p), pm.pack_points_lm(q),
-            jnp.asarray(flags[None]), interpret=True))
-        got = pointwise.seg_combine(_port_points(p), _port_points(q),
-                                    torch.from_numpy(flags))
-        for i in np.flatnonzero(flags):
-            assert want[i] == tuple(c % P for c in q[i])
-    assert got.shape == (4, F.NL, B) and got.dtype == torch.int32
-    assert points_to_ints(got) == want    # same formula: equal coordinates
+        got = pointwise.seg_combine(_port_points(p[:n]), _port_points(q[:n]),
+                                    torch.from_numpy(flags[:n]))
+    assert got.shape == (4, F.NL, n) and got.dtype == torch.int32
+    assert points_to_ints(got) == want[:n]  # same formula: equal coordinates
 
 
 @pytest.mark.parametrize("op", ["mul", "add"])

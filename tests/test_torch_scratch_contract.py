@@ -3,12 +3,13 @@ kernels/msm_ct.py, from copies of the kernels' compile-time constants:
 the copies must equal the .cu sources' (the C entries also refuse a
 scratch too short for their own).  So must K18's slot step, whose chunk
 lengths the twin repeats, and K17's split (kernels/fixed_base.py), whose
-tree the twin repeats."""
+tree the twin repeats; and K6's tree entry's row limit
+(kernels/pointwise.py), which its wrapper checks."""
 
 import re
 from pathlib import Path
 
-from zkvm_tpu_torch.kernels import fixed_base, msm, msm_ct
+from zkvm_tpu_torch.kernels import fixed_base, msm, msm_ct, pointwise
 
 CSRC = Path(msm.__file__).resolve().parent / "csrc"
 
@@ -32,3 +33,4 @@ def test_scratch_constants_match_the_kernels():
     assert (fb["kWindows"], fb["kEntries"]) == (fixed_base.WINDOWS,
                                                 fixed_base.ENTRIES)
     assert fb["kSplit"] == fixed_base.SPLIT
+    assert _constants("point_add.cu")["kTreeMaxRows"] == pointwise.TREE_MAX_ROWS

@@ -5,8 +5,9 @@ the lane-parallel kernels, csrc/lanes.cuh; K17 and K18 also
 csrc/ct_select.cuh) compiles with its own nvcc process into a shared
 library with a plain C interface; build_all starts them all together.  A
 kernel's source is csrc/<name>.cu unless SOURCES names another: K11 and
-K12 are entries of K2's library, K13-K16 of csrc/field_micro.cu, and
-K17's table set-up of csrc/fixed_base.cu.  Sources include no PyTorch
+K12 are entries of K2's library, K13-K16 of csrc/field_micro.cu,
+K17's table set-up of csrc/fixed_base.cu, and K6's tree entry
+(point_tree_fold) of csrc/point_add.cu.  Sources include no PyTorch
 header, so a build takes seconds, not the minutes a
 torch.utils.cpp_extension build of the same code takes.  Libraries land
 in kernels/build/ (ignored by git), named by a hash of their sources and
@@ -51,6 +52,7 @@ SIGNATURES = {
     "horner_check": ("zkvm_horner_check", [_P, _P, _P, _I, _I, _I, _P]),
     "seg_combine": ("zkvm_seg_combine", [_P, _P, _P, _P, _L, _P]),
     "point_add": ("zkvm_point_add", [_P, _P, _P, _L, _P]),
+    "point_tree_fold": ("zkvm_point_tree_fold", [_P, _P, _L, _L, _P]),
     "fe_mul": ("zkvm_fe_mul", [_P, _P, _P, _L, _P]),
     "fe_add": ("zkvm_fe_add", [_P, _P, _P, _L, _P]),
     "radix_sort": ("zkvm_radix_sort", [_P, _P, _P, _P, _L, _L, _I, _I, _I,
@@ -78,7 +80,8 @@ SOURCES = {"bucket_accumulate_words": "bucket_accumulate",
            "micro_mul": "field_micro", "micro_parts": "field_micro",
            "micro_add_chain": "field_micro",
            "micro_add_chain_lanes": "field_micro",
-           "fixed_base_table": "fixed_base"}
+           "fixed_base_table": "fixed_base",
+           "point_tree_fold": "point_add"}
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}
 # kernel() checks, builds and loads under _LOAD_LOCK, and count() adds to a

@@ -49,7 +49,8 @@ suffix scan and a tree of point_add_lm), in two launches after the sort:
   3. K3 (bucket_fold): each window's Σ_b b · B_b, one block of 32 groups
      of four buckets per window at nb = 128, one launch.
 small_scan_plain runs K5s's additions in its association, vectorized.
-The elementwise K5 and K6 (kernels/pointwise.py) stay as entry points.
+The elementwise K5 and K6 (kernels/pointwise.py) stay as entry points;
+K6's tree entry folds the multi-device paths' gathered totals.
 
 The bucket pipeline's stages follow an MsmConfig, as the JAX package's
 _bucket_totals_seq follows its environment switches (pallas_msm.py

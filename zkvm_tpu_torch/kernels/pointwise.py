@@ -5,19 +5,28 @@
      (its _seg_combine_kernel).
   K6 point_add (csrc/point_add.cu): out = p + q, the counterpart of
      pallas_field.point_add (its _point_add_kernel) and of
-     pallas_msm.py::point_add_lm (_add_kernel).
+     pallas_msm.py::point_add_lm (_add_kernel).  Its tree entry
+     point_tree_fold sums an (R, 4, 10, B) stack over R in one launch: the
+     multi-device paths' fold of the ranks' window totals
+     (parallel/sharded_msm.py tree_fold).
      The small-MSM route (kernels/msm.py window_totals_small) runs on K5s
-     and K3; K5 and K6 are entry points.
+     and K3; K5 and point_add are entry points.
   K7 mul (csrc/fe_mul.cu) and K8 add (csrc/fe_add.cu): batched GF(p)
      multiply and add with one carry pass, the counterparts of the JAX
      package's pallas_field.mul and .add entry points.  No verify path
      calls them.
 
-One thread per element, so any batch size B works (the JAX entry points
-take multiples of 512 lanes).  Points are (4, 10, B) int32, field elements
-(10, B) int32, in kernels/field.py's limb form.  Each *_plain function is
-the kernel's PyTorch twin, limb for limb: the CPU path and the kernel's
-yardstick on the card.
+K5 and K6 hold a point in a group of four lanes, one coordinate a lane,
+and add with lanes.cuh's lane_add_pt (q's cached form, then the addition:
+three products deep, so a launch of a few thousand points is bound by one
+such addition, and the tree by log2 R of them); K7 and K8 run one thread
+per element.  Any batch size B works (the JAX entry points take multiples
+of 512 lanes).  Points are (4, 10, B) int32, field elements (10, B) int32,
+in kernels/field.py's limb form.  Each *_plain function is the kernel's
+PyTorch twin, limb for limb: the CPU path and the kernel's yardstick on
+the card.  The point twins add as the kernels do, in cached form
+(combine.add_cached), whose products differ in association from
+F.point_add's but not mod p.
 """
 
 from __future__ import annotations
@@ -26,6 +35,10 @@ import torch
 
 from . import _build
 from . import field as F
+from .combine import add_cached, cached
+
+# csrc/point_add.cu kTreeMaxRows: point_tree_fold's rows after padding
+TREE_MAX_ROWS = 64
 
 
 def _check_points(t: torch.Tensor, B, what: str) -> None:
@@ -38,12 +51,8 @@ def _check_fe(t: torch.Tensor, B, what: str) -> None:
 
 # ------------------------------------------------------------------ K5
 def seg_combine_plain(p, q, flags):
-    """As the kernel: the elements whose flag is clear get p + q, the
-    others keep q."""
-    clear = (flags == 0).nonzero().squeeze(1)
-    out = q.clone()
-    out[:, :, clear] = point_add_plain(p[:, :, clear], q[:, :, clear])
-    return out
+    """As the kernel: every element's p + q, then q where the flag is set."""
+    return torch.where(flags != 0, q, point_add_plain(p, q))
 
 
 def seg_combine(p: torch.Tensor, q: torch.Tensor,
@@ -67,7 +76,9 @@ seg_combine.launches = 0
 
 # ------------------------------------------------------------------ K6
 def point_add_plain(p, q):
-    return F.pack_points(F.point_add(F.unpack_points(p), F.unpack_points(q)))
+    """As the kernel: p + q with q in cached form (combine.add_cached)."""
+    q = cached(F.unpack_points(q))
+    return F.pack_points(add_cached(F.unpack_points(p), q))
 
 
 def point_add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -84,6 +95,53 @@ def point_add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 
 
 point_add.launches = 0
+
+
+def identity_points(shape: tuple, device) -> torch.Tensor:
+    """(4, 10, *shape) int32 identity points (0, 1, 1, 0)."""
+    out = torch.zeros((4, F.NL) + tuple(shape), dtype=torch.int32,
+                      device=device)
+    out[1:3, 0] = 1
+    return out
+
+
+def point_tree_fold_plain(stack):
+    """As the kernel: the rows padded with identities to a power of two,
+    then row i + row i + h for every i < h, h halving down to 1."""
+    R, B = stack.shape[0], stack.shape[3]
+    size = 1 << (R - 1).bit_length()
+    rows = stack.permute(1, 2, 0, 3)                     # (4, 10, R, B)
+    if size != R:
+        rows = torch.cat([rows, identity_points((size - R, B), stack.device)],
+                         dim=2)
+    while rows.shape[2] > 1:
+        h = rows.shape[2] // 2
+        rows = point_add_plain(rows[:, :, :h], rows[:, :, h:])
+    return rows[:, :, 0].contiguous()
+
+
+def point_tree_fold(stack: torch.Tensor) -> torch.Tensor:
+    """(R, 4, 10, B) int32 points, R <= TREE_MAX_ROWS, -> (4, 10, B) int32,
+    their sum over R in the reference's tree (point_tree_fold_plain), in
+    one launch.  R = 1 launches nothing: row 0 is the sum."""
+    R = stack.shape[0]
+    if not 1 <= R <= TREE_MAX_ROWS:
+        raise ValueError(f"point_tree_fold: {R} rows, not 1 to "
+                         f"{TREE_MAX_ROWS}")
+    if stack.device.type == "cpu":
+        return point_tree_fold_plain(stack)
+    _build.check_cuda(stack, torch.int32, (None, 4, F.NL, None),
+                      "point_tree_fold stack")
+    if R == 1:
+        return stack[0]
+    B = stack.shape[3]
+    out = torch.empty((4, F.NL, B), dtype=torch.int32, device=stack.device)
+    _build.launch("point_tree_fold", stack, out, R, B)
+    _build.count(point_tree_fold)
+    return out
+
+
+point_tree_fold.launches = 0
 
 
 # ------------------------------------------------------------------ K7

@@ -6,7 +6,7 @@ sum, so sharding the proof axis commutes with the random-linear-
 combination batching (SURVEY §2.9 P3 x P5; BASELINE config 4).
 
 Counterpart of the JAX package's parallel/fused_batch_verify.py, on its
-device-combine path: after the K6 tree over the gathered totals
+device-combine path: after K6's tree entry over the gathered totals
 (sharded_msm.combine_gathered), K4 runs Horner's rule and the identity
 test on the card and one int crosses back.  The static generator block
 ([B_blinding, B] + G + H) is resident on every rank; each rank takes its

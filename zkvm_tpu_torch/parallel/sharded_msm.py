@@ -5,12 +5,12 @@ over disjoint point sets, so the mesh partitions the points: each rank
 runs msm.window_totals on its contiguous share, the ranks' (4, 10, nw)
 window totals (a few KB) are all-gathered, and every rank folds the stack
 in log-depth Edwards additions, so that the result is the same on every
-rank.  The fold runs on K6 point_add (kernels/pointwise.py), the port of
-the reference's _point_add_kernel formula that its sharded paths trace
-(pallas_msm._add_formula): one launch a level over half the stack's
-points.  The stack is padded with identity points to a power of two, so
-any rank count works (the reference's pipeline path asserts a power of
-two; its fused path pads).
+rank.  The fold is K6's tree entry point_tree_fold (kernels/pointwise.py),
+the port of the reference's _point_add_kernel formula that its sharded
+paths trace (pallas_msm._add_formula): one launch folds the whole stack as
+it lies, its identity pad rows made in the kernel, so any rank count works
+(the reference's pipeline path asserts a power of two; its fused path
+pads).
 
 The reference's sharded_msm_fn (its batch-major jnp MSM) and
 sharded_msm_pallas (its limb-major pipeline) are one function here: the
@@ -25,45 +25,26 @@ from ..oracle.ristretto import RistrettoPoint
 from ..kernels import field as F
 from ..kernels.combine import horner_check, horner_fold
 from ..kernels.msm import window_totals
-from ..kernels.pointwise import point_add
+from ..kernels.pointwise import identity_points, point_tree_fold
 from ..kernels.words import points_to_ints
 from .mesh import Mesh
 
 
-def identity_points(shape: tuple, device) -> torch.Tensor:
-    """(4, 10, *shape) int32 identity points (0, 1, 1, 0)."""
-    out = torch.zeros((4, F.NL) + tuple(shape), dtype=torch.int32,
-                      device=device)
-    out[1:3, 0] = 1
-    return out
-
-
 def tree_fold(stack: torch.Tensor) -> torch.Tensor:
-    """(R, 4, 10, B) points -> (4, 10, B), their sum over R: the stack
-    padded with identities to a power of two, then halved by K6 until one
-    row is left, each level one launch over (R / 2) · B points (row i plus
-    row i + R / 2)."""
-    R, B = stack.shape[0], stack.shape[3]
-    size = 1 << (R - 1).bit_length()
-    if size != R:
-        pad = identity_points((size - R, B), stack.device)
-        stack = torch.cat([stack, pad.permute(2, 0, 1, 3)])
-    while stack.shape[0] > 1:
-        h = stack.shape[0] // 2
-
-        def lay(v):          # (h, 4, 10, B) -> (4, 10, h · B)
-            return v.permute(1, 2, 0, 3).reshape(4, F.NL, h * B)
-        s = point_add(lay(stack[:h]).contiguous(), lay(stack[h:]).contiguous())
-        stack = s.reshape(4, F.NL, h, B).permute(2, 0, 1, 3)
-    return stack[0].contiguous()
+    """(R, 4, 10, B) points -> (4, 10, B), their sum over R: K6's tree
+    entry (pointwise.point_tree_fold) on a CUDA stack, its twin on a CPU
+    one.  The stack padded with identities to a power of two, then row i
+    plus row i + h at each level, the reference's association; one launch,
+    none at R = 1."""
+    return point_tree_fold(stack)
 
 
 def combine_gathered(mesh: Mesh, totals: torch.Tensor,
                      axis: str | None = None) -> torch.Tensor:
     """Every rank's (4, 10, B) window totals (B = nw, or groups x nw)
     along `axis` ("tp", "dp" or None for the whole mesh), all-gathered and
-    summed by tree_fold (K6): the same (4, 10, B) on every rank of the
-    axis."""
+    summed by tree_fold (K6's tree entry): the same (4, 10, B) on every
+    rank of the axis."""
     return tree_fold(mesh.all_gather(totals, axis))
 
 
